@@ -1,0 +1,351 @@
+#!/usr/bin/env python3
+"""GPU bring-up check of the PyTorch/CUDA port (tetra_tpu_torch).
+
+Run from the repository root on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+Phases (one JSON line each):
+  1. device   nvidia-smi name and power limit; nvcc build of csrc/*.cu.
+  2. kernels  each hand-written kernel against its plain PyTorch
+              version on the card, at the main path's shapes and at the
+              CPU-test shapes: K1 (assembled Viterbi + CRC, n_sym 288
+              and 80) bit-identical, K2 (PFB WOLA) and K3 (resampler)
+              within max|d| <= 1e-4 * max|plain|; times of both.
+  3. small    an 8-carrier production capture through the receiver on
+              the card and on the CPU (plain versions): identical
+              per-carrier stats and native event arrays.
+  4. prod     the 1024-carrier production capture (25 kHz spacing,
+              fs 25.6 MS/s, 4 chunks, 102 TEA1-encrypted carriers)
+              once warm and once timed; zero CRC errors, decode counts
+              inside the window the JAX package recorded, and every
+              kernel launched by the timed run.
+Then the kernel summary line, the nvidia-smi line, and last
+{"ok": true, "device": {...}}. Exits nonzero without that line when
+there is no card, the build fails, or any check fails.
+"""
+import json
+import subprocess
+import sys
+import time
+import traceback
+
+TOL = 1e-4          # K2/K3: max |kernel - plain| <= TOL * max |plain|
+N_CAR = 1024
+N_CHUNKS = 4
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 10) -> float:
+    """Mean device time of fn() in ms over `reps` runs, after a warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def rel_err(got, want) -> tuple[float, float]:
+    d = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    scale = max(float(w.abs().max()) for w in want)
+    return d, scale
+
+
+def reset_launches():
+    from tetra_tpu_torch.ops.viterbi_assembled import decode_assembled
+    from tetra_tpu_torch.phy.pfb import pfb_channelize_rows, resample_rows
+    for fn in (decode_assembled, pfb_channelize_rows, resample_rows):
+        fn.launches = 0
+
+
+def launches() -> dict:
+    from tetra_tpu_torch.ops.viterbi_assembled import decode_assembled
+    from tetra_tpu_torch.phy.pfb import pfb_channelize_rows, resample_rows
+    return {"viterbi_assembled": decode_assembled.launches,
+            "pfb_wola": pfb_channelize_rows.launches,
+            "resample_rows": resample_rows.launches}
+
+
+def slot_batch(n_rows: int, dev, seed: int = 1):
+    """~n_rows real slots cut from the fixture rows at the positions the
+    port's synchroniser emits, tiled and corrupted with 0..60 random
+    bit flips each; returns (slots [n, 510] int8, kinds [n]) on dev."""
+    import numpy as np
+    import torch
+    from tetra_tpu_torch import prod_fixture
+    from tetra_tpu_torch.phy.sync_vec import sync_scan
+    fx = prod_fixture.load()
+    rows = np.stack([fx["plain"], fx["enc"]]).astype(np.int8)
+    bits = torch.as_tensor(rows)
+    z = torch.zeros(2, dtype=torch.int32)
+    steps = rows.shape[1] // 64
+    _, out = sync_scan(bits, z, z, z, z, z, 0, steps)
+    t, c = torch.nonzero(out["emit"], as_tuple=True)
+    kinds = out["col"][t, c].to(torch.int64)
+    slots = torch.stack([bits[ci, s:s + 510] for ci, s in
+                         zip(c.tolist(), out["slot"][t, c].tolist())])
+    rng = np.random.default_rng(seed)
+    pick = rng.integers(0, len(slots), n_rows)
+    sl = slots[pick].numpy().copy()
+    kd = kinds[pick].numpy()
+    nflip = rng.integers(0, 61, n_rows)
+    for i in range(n_rows):
+        if nflip[i]:
+            sl[i, rng.choice(510, nflip[i], replace=False)] ^= 1
+    return (torch.as_tensor(sl, device=dev),
+            torch.as_tensor(kd, device=dev))
+
+
+def check_k1(dev, n_rows: int) -> dict:
+    """K1 vs its plain version at n_sym 288 (fused decode) and 80 (SB1)
+    on random signs and on corrupted real slots."""
+    import torch
+    from tetra_tpu import constants as C
+    from tetra_tpu_torch.lmac.fused import assemble_parts, fused_tables
+    from tetra_tpu_torch.lmac.pipeline import _sb1_decoder
+    from tetra_tpu_torch.ops.viterbi_assembled import decode_assembled_plain
+    init = ((42 << 6 | 262 << 20 | 1) << 2) | C.SCRAMB_INIT
+    tables = fused_tables(dev)
+    sb1 = _sb1_decoder(dev)
+    g = torch.Generator(device="cpu").manual_seed(7)
+    slots, kinds = slot_batch(n_rows, dev)
+    inits = torch.full((n_rows,), init, dtype=torch.int64, device=dev)
+    x, tab, rm, _ = assemble_parts(slots, inits, kinds, tables)
+    xr = torch.randint(-1, 2, x.shape, generator=g).to(torch.int8).to(dev)
+    tabr = torch.randint(0, 3, (n_rows,), generator=g).to(torch.int32).to(dev)
+    rmr = tables.rmask[tabr.to(torch.int64)]
+    res = {"rows": n_rows}
+    worst = 0
+    max_abs = 0
+    n_ok = 0
+    for name, code, cases in (
+            ("n288", tables.code, [(x, tab, rm), (xr, tabr, rmr)]),
+            ("n80", sb1.code, None)):
+        if cases is None:
+            t5 = slots[:, C.SB_BLK1_OFFSET:C.SB_BLK1_OFFSET + 120]
+            sgn = (1 - 2 * (t5 ^ sb1.ks)).to(torch.int8)
+            z = torch.zeros(n_rows, dtype=torch.int32, device=dev)
+            r0 = torch.zeros((n_rows, 0), dtype=torch.int8, device=dev)
+            sgr = torch.randint(-1, 2, sgn.shape, generator=g) \
+                .to(torch.int8).to(dev)
+            cases = [(sgn, z, r0), (sgr, z, r0)]
+        for xi, ti, ri in cases:
+            bk, ok_k = code(xi, ti, ri)
+            bp, ok_p = decode_assembled_plain(xi, code.pidx, ti, ri,
+                                              code.n_sym, code.boundaries,
+                                              code.crc_segs)
+            worst = max(worst, int((bk != bp).sum()),
+                        int((ok_k != ok_p).sum()))
+            max_abs = max(max_abs, int((bk - bp).abs().max()),
+                          int((ok_k - ok_p).abs().max()))
+            n_ok += int(ok_k.sum())
+        xi, ti, ri = cases[0]
+        res[f"ms_{name}"] = cuda_ms(lambda: code(xi, ti, ri))
+        res[f"plain_ms_{name}"] = cuda_ms(
+            lambda: decode_assembled_plain(xi, code.pidx, ti, ri, code.n_sym,
+                                           code.boundaries, code.crc_segs),
+            reps=2)
+    res["mismatches"] = worst
+    res["max_abs_err"] = max_abs
+    res["crc_ok_flags"] = n_ok
+    if worst:
+        raise AssertionError(f"K1 differs from its plain version: {res}")
+    return res
+
+
+def check_pfb(dev, n_chan: int, T: int, seed: int) -> dict:
+    """K2 and K3 vs their plain versions on Gaussian wideband noise."""
+    import torch
+    from tetra_tpu_torch.phy.pfb import (PfbFrontEnd, pfb_channelize_rows,
+                                         pfb_channelize_rows_plain,
+                                         resample_rows, resample_rows_plain)
+    fe = PfbFrontEnd(n_chan, 25_000.0 * n_chan).to(dev)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    re = torch.randn(T, generator=g).to(dev)
+    im = torch.randn(T, generator=g).to(dev)
+    k2 = lambda: pfb_channelize_rows(re, im, fe.h, fe.twc, fe.tws, n_chan,
+                                     fe.J)
+    p2 = lambda: pfb_channelize_rows_plain(re, im, fe.h, n_chan, fe.J)
+    yk, yp = k2(), p2()
+    d2, s2 = rel_err(yk, yp)
+    yr, yi = yp
+    n_out = fe.n_out(yr.shape[0])
+    k3 = lambda: resample_rows(yr, yi, fe.rs_taps, fe.rs_off, fe.W, fe.bmin,
+                               fe.L, fe.M, n_out)
+    p3 = lambda: resample_rows_plain(yr, yi, fe.W, fe.bmin, fe.L, fe.M,
+                                     n_out)
+    d3, s3 = rel_err(k3(), p3())
+    res = {"n_chan": n_chan, "samples": T, "frames": int(yr.shape[0]),
+           "n_out": n_out,
+           "k2_max_abs_err": d2, "k2_max_abs_plain": s2,
+           "k3_max_abs_err": d3, "k3_max_abs_plain": s3,
+           "k2_ms": cuda_ms(k2), "k2_plain_ms": cuda_ms(p2),
+           "k3_ms": cuda_ms(k3), "k3_plain_ms": cuda_ms(p3)}
+    if not (d2 <= TOL * s2 and d3 <= TOL * s3):
+        raise AssertionError(f"K2/K3 outside tolerance: {res}")
+    return res
+
+
+def counts(mrx) -> dict:
+    import numpy as np
+    from tetra_tpu.umac.native_exec import EV
+    kinds = np.concatenate([e["kind"] for e in mrx.native_events])
+    return {"crc_ok": sum(c.stats.crc_ok for c in mrx.carriers),
+            "crc_err": sum(c.stats.crc_wrong for c in mrx.carriers),
+            "traffic_slots": int((kinds == EV.TRAFFIC).sum()),
+            "tl_sdus": int((kinds == EV.TLSDU).sum()),
+            "frag_ends": int((kinds == EV.FRAG_END).sum())}
+
+
+def check_small(ks_path: str, dev) -> dict:
+    """8 carriers at fs = 200 kHz (the CPU tests' production fixture):
+    the receiver on the card equals the receiver on the CPU."""
+    import numpy as np
+    from tetra_tpu_torch import prod_fixture
+    bits, _ = prod_fixture.mixed_bits(8, 0.25)
+    packed = prod_fixture.wideband_capture(bits)
+    gpu, _ = prod_fixture.run_receiver(packed, 8, ks_path, dev, 2)
+    cpu, _ = prod_fixture.run_receiver(packed, 8, ks_path, "cpu", 2)
+    st = lambda m: [(c.stats.bursts, c.stats.crc_ok, c.stats.crc_wrong)
+                    for c in m.carriers]
+    same_ev = all(
+        np.array_equal(np.concatenate([e[k] for e in gpu.native_events]),
+                       np.concatenate([e[k] for e in cpu.native_events]))
+        for k in ("carrier", "kind", "a", "b", "c", "d"))
+    res = {"carriers": 8, "stats_equal": st(gpu) == st(cpu),
+           "events_equal": bool(same_ev), **counts(gpu)}
+    if not (res["stats_equal"] and res["events_equal"]
+            and res["crc_err"] == 0 and res["crc_ok"] > 0):
+        raise AssertionError(f"small capture: card and CPU differ: {res}")
+    return res
+
+
+def main() -> int:
+    try:
+        import numpy as np
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: {e}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda is not available", file=sys.stderr)
+        return 2
+    try:
+        from tetra_tpu_torch import kernels, prod_fixture
+        from tetra_tpu_torch.device import resolve_device
+    except ImportError as e:
+        print(f"chip_smoke: the tetra_tpu_torch package is missing ({e})",
+              file=sys.stderr)
+        return 2
+    try:
+        dev = resolve_device("cuda")
+        card = smi()
+        t0 = time.perf_counter()
+        kernels.build()
+        kernels.lib()
+        emit({"phase": "device", "nvidia_smi": card,
+              "kind": torch.cuda.get_device_name(0),
+              "torch": torch.__version__, "cuda": torch.version.cuda,
+              "build_s": time.perf_counter() - t0})
+
+        k1 = check_k1(dev, 20_000)
+        emit({"phase": "kernels", "kernel": "K1", **k1})
+        # main-path shapes: one wideband chunk of the 1024-carrier capture
+        # plus its overlap-save history; CPU-test shapes: C = 8
+        k23 = check_pfb(dev, N_CAR, 6_672_000, 1)
+        emit({"phase": "kernels", "kernel": "K2+K3", **k23})
+        emit({"phase": "kernels", "kernel": "K2+K3",
+              **check_pfb(dev, 8, 60_000, 2)})
+
+        with prod_fixture.keystore_file() as ks_path:
+            emit({"phase": "small", **check_small(ks_path, dev)})
+
+            t0 = time.perf_counter()
+            fx = prod_fixture.load()
+            bits, n_enc = prod_fixture.mixed_bits(N_CAR, 0.1, fx)
+            packed = prod_fixture.wideband_capture(bits)
+            T_bits = bits.shape[1]
+            emit({"phase": "prod_fixture", "carriers": N_CAR,
+                  "encrypted": n_enc, "bits_per_carrier": T_bits,
+                  "wideband_samples": int(len(packed)),
+                  "build_s": time.perf_counter() - t0})
+            _, warm_s = prod_fixture.run_receiver(packed, N_CAR, ks_path,
+                                                  dev, N_CHUNKS)
+            reset_launches()
+            mrx, wall = prod_fixture.run_receiver(packed, N_CAR, ks_path,
+                                                  dev, N_CHUNKS)
+            n_launch = launches()
+        got = counts(mrx)
+        ref = {k: [int(v) for v in fx[f"ref_{k}"]] for k in got}
+        in_window = {k: ref[k][0] <= got[k] <= ref[k][1] for k in got}
+        # the window's low ends are the JAX wideband path's counts
+        equals_jax_wideband = all(got[k] == ref[k][0] for k in got)
+        # per carrier against the JAX bits path on the same rows
+        mine = np.asarray([(c.stats.bursts, c.stats.crc_ok,
+                            c.stats.crc_wrong) for c in mrx.carriers])
+        jbits = fx["jax_bits_stats"]
+        per_carrier = {
+            "carriers_equal_jax_bits_path": int((mine == jbits).all(1).sum()),
+            "crc_ok_short_of_bits_path": int((jbits[:, 1] - mine[:, 1]).sum()),
+            "carriers_with_crc_wrong": int((mine[:, 2] > 0).sum())}
+        rt = N_CAR * T_bits / prod_fixture.BITRATE / wall
+        emit({"phase": "prod", "carriers": N_CAR, "chunks": N_CHUNKS,
+              "encrypted": n_enc, "warm_s": warm_s, "wall_s": wall,
+              "realtime_carriers": rt, "card": card, **got,
+              "jax_window": ref, "in_window": in_window,
+              "equals_jax_wideband": equals_jax_wideband, **per_carrier,
+              "launches": n_launch})
+        if not all(in_window.values()):
+            raise AssertionError("decode counts outside the JAX window")
+        if min(n_launch.values()) <= 0:
+            raise AssertionError(f"a kernel was not launched: {n_launch}")
+
+        emit({"kernels": [
+            {"name": "viterbi_assembled", "route": "cuda",
+             "source": "tetra_tpu_torch/csrc/viterbi_assembled.cu",
+             "replaces": "tetra_tpu/ops/viterbi_pallas.py:631",
+             "launches": n_launch["viterbi_assembled"],
+             "max_abs_err": float(k1["max_abs_err"]),
+             "ms": k1["ms_n288"], "plain_ms": k1["plain_ms_n288"],
+             "ms_n80": k1["ms_n80"], "plain_ms_n80": k1["plain_ms_n80"]},
+            {"name": "pfb_wola", "route": "cuda",
+             "source": "tetra_tpu_torch/csrc/pfb_wola.cu",
+             "replaces": "tetra_tpu/phy/pfb_pallas.py:212",
+             "launches": n_launch["pfb_wola"],
+             "max_abs_err": k23["k2_max_abs_err"],
+             "ms": k23["k2_ms"], "plain_ms": k23["k2_plain_ms"]},
+            {"name": "resample_rows", "route": "cuda",
+             "source": "tetra_tpu_torch/csrc/resample_rows.cu",
+             "replaces": "tetra_tpu/phy/pfb_pallas.py:337",
+             "launches": n_launch["resample_rows"],
+             "max_abs_err": k23["k3_max_abs_err"],
+             "ms": k23["k3_ms"], "plain_ms": k23["k3_plain_ms"]}]})
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    except Exception:
+        traceback.print_exc()
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,75 @@
+"""Hand-written CUDA kernels of the port vs their plain PyTorch versions.
+
+These need a CUDA card and nvcc (the kernels build on first use); on a
+machine without a card they skip. On the card (which has no jax, so
+tests/conftest.py is not loaded):
+
+    python -m pytest tests/test_torch_cuda.py -q --noconftest
+"""
+import pytest
+import torch
+
+from tetra_tpu_torch.lmac import fused
+from tetra_tpu_torch.lmac.pipeline import _sb1_decoder
+from tetra_tpu_torch.ops.viterbi_assembled import decode_assembled_plain
+from tetra_tpu_torch.phy import pfb
+
+pytestmark = pytest.mark.cuda
+
+
+def cuda_device() -> torch.device:
+    """The card, or skip. Decided inside each test, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("shape", ["n288", "n80"])
+def test_k1_matches_plain(shape):
+    dev = cuda_device()
+    g = torch.Generator().manual_seed(3)
+    if shape == "n288":
+        code = fused.fused_tables(dev).code
+        tab = torch.randint(0, 3, (3000,), generator=g).to(torch.int32)
+        rm = fused.fused_tables(torch.device("cpu")).rmask[tab.long()]
+        K = 512
+    else:
+        code = _sb1_decoder(dev).code
+        tab = torch.zeros(3000, dtype=torch.int32)
+        rm = torch.zeros((3000, 0), dtype=torch.int8)
+        K = 120
+    x = torch.randint(-1, 2, (3000, K), generator=g).to(torch.int8)
+    x, tab, rm = x.to(dev), tab.to(dev), rm.to(dev)
+    bits, ok = code(x, tab, rm)
+    bp, okp = decode_assembled_plain(x, code.pidx, tab, rm, code.n_sym,
+                                     code.boundaries, code.crc_segs)
+    assert torch.equal(bits, bp) and torch.equal(ok, okp)
+
+
+@pytest.mark.parametrize("n_chan,T", [(8, 40_000), (1024, 400_000),
+                                      (12, 30_000)])
+def test_k2_k3_match_plain(n_chan, T):
+    dev = cuda_device()
+    fe = pfb.PfbFrontEnd(n_chan, 25_000.0 * n_chan).to(dev)
+    g = torch.Generator().manual_seed(n_chan)
+    re = torch.randn(T, generator=g).to(dev)
+    im = torch.randn(T, generator=g).to(dev)
+    yk = pfb.pfb_channelize_rows(re, im, fe.h, fe.twc, fe.tws, n_chan, fe.J)
+    yp = pfb.pfb_channelize_rows_plain(re, im, fe.h, n_chan, fe.J)
+    for a, b in zip(yk, yp):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    n_out = fe.n_out(yp[0].shape[0])
+    ok_ = pfb.resample_rows(*yp, fe.rs_taps, fe.rs_off, fe.W, fe.bmin, fe.L,
+                            fe.M, n_out)
+    op = pfb.resample_rows_plain(*yp, fe.W, fe.bmin, fe.L, fe.M, n_out)
+    for a, b in zip(ok_, op):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_wrappers_reject_bad_arguments():
+    dev = cuda_device()
+    code = _sb1_decoder(dev).code
+    x = torch.zeros((4, 120), dtype=torch.int16, device=dev)
+    with pytest.raises(TypeError):
+        code(x, torch.zeros(4, dtype=torch.int32, device=dev),
+             torch.zeros((4, 0), dtype=torch.int8, device=dev))

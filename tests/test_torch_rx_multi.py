@@ -1,0 +1,139 @@
+"""The PyTorch port's production receiver end to end vs tetra_tpu's
+MultiCarrierReceiver on the CPU (TestProdConfig capture: 8 carriers,
+fs = 200 kHz, PFB, native control plane, TEA1-encrypted carriers), the
+pre-demodulated bits entry, the jax-free import, and the options that
+are not ported."""
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from tests._torch_util import CPU
+from tests.test_sync_vec import make_stream
+
+from tetra_tpu.rx_multi import MultiCarrierReceiver as JaxReceiver
+from tetra_tpu.umac import native_exec
+
+from tetra_tpu_torch.rx_multi import MultiCarrierReceiver
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+pytestmark = pytest.mark.skipif(not native_exec.available(),
+                                reason="native library unavailable")
+
+
+def _same_receivers(ref, got, n_car):
+    for c in range(n_car):
+        p, q = ref.carriers[c], got.carriers[c]
+        assert (p.stats.bursts, p.stats.slots, p.stats.crc_ok,
+                p.stats.crc_wrong) == (q.stats.bursts, q.stats.slots,
+                                       q.stats.crc_ok, q.stats.crc_wrong), c
+        assert (p.time.tn, p.time.fn, p.time.mn) == \
+            (q.time.tn, q.time.fn, q.time.mn), c
+        assert (p.colour_code, p.mcc, p.mnc, p.scramb_init) == \
+            (q.colour_code, q.mcc, q.mnc, q.scramb_init), c
+    assert len(ref.native_events) == len(got.native_events)
+    for key in ("carrier", "kind", "a", "b", "c", "d", "payload"):
+        a = np.concatenate([e[key] for e in ref.native_events])
+        b = np.concatenate([e[key] for e in got.native_events])
+        assert np.array_equal(a, b), key
+
+
+def test_prod_wideband_matches_jax(tmp_path):
+    """TestProdConfig: same per-carrier stats, TDMA state, cell identity
+    and concatenated native event arrays as the JAX receiver."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import bench_mc_e2e as B
+    from tetra_tpu.phy import dqpsk, channelizer
+    from tetra_tpu.io import stream as stream_mod
+    from tetra_tpu.umac.native_exec import EV
+    bits, n_enc = B.mixed_batch(8, 8, enc_frac=0.25)
+    assert n_enc == 2
+    ksf = tmp_path / "keys.txt"
+    ksf.write_text(B.KEYSTORE)
+    base = dqpsk.modulate(bits, sps=2)
+    wide = channelizer.synthesize_wideband_fft(base, np.arange(8), 8)
+    packed = stream_mod.quantize_iq4c(wide.real, wide.imag)
+    half = len(packed) // 2
+    kw = dict(fs=2e5, pfb_channels=np.arange(8, dtype=np.int32), n_chan=8,
+              control_plane="native", keystore_path=str(ksf))
+    ref = JaxReceiver([], **kw)
+    got = MultiCarrierReceiver([], device=CPU, **kw)
+    for rx in (ref, got):
+        rx.process_iq4c(packed[:half], final=False)
+        rx.process_iq4c(packed[half:], final=True)
+    _same_receivers(ref, got, 8)
+    assert all(c.stats.crc_wrong == 0 and c.stats.crc_ok > 0
+               for c in got.carriers)
+    kinds = np.concatenate([e["kind"] for e in got.native_events])
+    assert (kinds == EV.TRAFFIC).sum() > 0 and (kinds == EV.TLSDU).sum() > 0
+
+
+def test_bits_entry_matches_jax():
+    """Pre-demodulated corrupted streams, uneven chunks, pipelining."""
+    B = 6
+    streams = [make_stream(7000 + b, n_frames=4) for b in range(B)]
+    L = min(len(s) for s in streams)
+    batch = np.stack([s[:L] for s in streams])
+    cuts = [0, 999, L // 2, L // 2 + 20, L]
+    ref = JaxReceiver(np.zeros(B, np.float32), fs=25e3 * B,
+                      control_plane="native")
+    got = MultiCarrierReceiver([], fs=25e3 * B, pfb_channels=np.arange(B),
+                               device=CPU)
+    for k in range(len(cuts) - 1):
+        last = k == len(cuts) - 2
+        for rx in (ref, got):
+            rx.process_bits(batch[:, cuts[k]:cuts[k + 1]], final=last)
+    _same_receivers(ref, got, B)
+
+
+def test_import_is_jax_free():
+    """A fresh interpreter imports the port, runs a 2-carrier wideband
+    slice and never loads jax."""
+    code = """
+import sys
+import numpy as np
+import tetra_tpu_torch.rx_multi as rm
+from tetra_tpu_torch import prod_fixture
+bits, _ = prod_fixture.mixed_bits(8, 0.25)
+packed = prod_fixture.wideband_capture(bits[:, :8000])
+mrx = rm.MultiCarrierReceiver([], fs=2e5, pfb_channels=[2, 5], n_chan=8,
+                              device="cpu")
+stats = mrx.process_iq4c(packed)
+assert all(s.crc_ok > 0 and s.crc_wrong == 0 for s in stats), stats
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+print("ok")
+"""
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(pfb_channels=None),
+    dict(control_plane="python"),
+    dict(demod="soft"),
+    dict(mesh=object()),
+    dict(gsmtap_host="127.0.0.1"),
+    dict(dumpdir="x"),
+    dict(decode_voice=True),
+])
+def test_unported_options_raise(kwargs):
+    base = dict(fs=2e5, pfb_channels=np.arange(8), n_chan=8, device=CPU)
+    base.update(kwargs)
+    with pytest.raises(NotImplementedError):
+        MultiCarrierReceiver([], **base)
+
+
+def test_cuda_request_without_card_raises():
+    import torch
+    from tetra_tpu_torch.device import resolve_device
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device(None).type == "cpu"

@@ -1,0 +1,216 @@
+"""Constant tables of the PyTorch port equal tetra_tpu's originals.
+
+The port copies every numpy table builder it needs (tetra_tpu's modules
+import jax); a copy that drifts from the original is caught here, one
+test per table.
+"""
+import pathlib
+import sys
+
+import numpy as np
+import pytest
+
+import tests._torch_util  # noqa: F401  (caps torch threads)
+
+from tetra_tpu import constants as C
+from tetra_tpu.ops import crc as j_crc, rcpc as j_rcpc, \
+    interleave as j_il, scramble as j_scr, viterbi as j_vit
+from tetra_tpu.lmac import fused as j_fused, pipeline as j_pipe
+from tetra_tpu.phy import pfb as j_pfb, dqpsk as j_dqpsk, \
+    channelizer as j_ch
+from tetra_tpu.io import stream as j_stream
+
+from tetra_tpu_torch.ops import crc, rcpc, interleave, scramble, viterbi
+from tetra_tpu_torch.ops.viterbi_assembled import pmat_to_index
+from tetra_tpu_torch.lmac import fused, pipeline
+from tetra_tpu_torch.phy import pfb, dqpsk, channelizer
+from tetra_tpu_torch.io import stream
+from tetra_tpu_torch import prod_fixture
+from tetra_tpu_torch.rx_multi import pfb_demod_bits_len
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent
+                       / "tools"))
+
+
+@pytest.mark.parametrize("length", [76, 140, 284, 60, 1])
+def test_crc16_matrix(length):
+    M, Cc = crc.crc16_matrix(length)
+    Mj, Cj = j_crc.crc16_matrix(length)
+    assert np.array_equal(M, Mj) and np.array_equal(Cc, Cj)
+
+
+def test_puncture_indices():
+    for scheme, n in (("2_3", 120), ("2_3", 216), ("2_3", 432),
+                      ("2_3", 168), ("292_432", 432), ("148_432", 432)):
+        assert np.array_equal(rcpc.puncture_indices(scheme, n),
+                              j_rcpc.puncture_indices(scheme, n))
+
+
+def test_interleave_indices():
+    for K, a in ((120, 11), (216, 101), (432, 103), (168, 13)):
+        for x, y in zip(interleave.interleave_indices(K, a),
+                        j_il.interleave_indices(K, a)):
+            assert np.array_equal(x, y)
+
+
+def test_keystream_np():
+    assert np.array_equal(scramble.keystream_matrix(432),
+                          j_scr.keystream_matrix(432))
+    for init in (C.SCRAMB_INIT, j_scr.scramb_get_init(262, 42, 1),
+                 0xFFFFFFFF, 0x80000003):
+        assert np.array_equal(scramble.keystream_np(init, 432),
+                              j_scr.keystream_np(init, 432))
+
+
+def test_trellis_tables():
+    g = tuple(map(tuple, C.CONV_GENERATORS_CCH))
+    assert np.array_equal(viterbi.trellis_signs(g), j_vit.trellis_signs(g))
+    for name in ("_P0", "_P1", "_BIT"):
+        assert np.array_equal(getattr(viterbi, name), getattr(j_vit, name))
+
+
+def test_fused_maps():
+    for x, y in zip(fused._maps(), j_fused._maps()):
+        assert np.array_equal(x, y)
+
+
+def test_fused_maps_planes():
+    assert np.array_equal(fused._maps_planes(), j_fused._maps_planes())
+
+
+def test_fec_matrix():
+    for kind in ("SB1", "SB2", "NDB", "SCH_F", "SCH_HU"):
+        assert np.array_equal(pipeline._fec_matrix(kind),
+                              j_pipe._fec_matrix(kind))
+
+
+def test_assembly_maps_are_one_hot():
+    """Every assembly map row holds at most one nonzero, so K1's index
+    gather equals the TPU kernel's one-hot matmul."""
+    P2 = j_fused._maps_planes()
+    pmats = [P2[k].T for k in range(3)]
+    pmats.append(j_pipe._fec_matrix("SB1").T)
+    for pm in pmats:
+        assert ((pm != 0).sum(axis=1) <= 1).all()
+        idx = pmat_to_index(pm).astype(np.int64)
+        x = np.random.default_rng(0).integers(-1, 2, pm.shape[1])
+        gathered = np.where(idx >= 0, x[np.maximum(idx, 0)], 0)
+        assert np.array_equal(gathered, (pm != 0).astype(np.int64) @ x)
+    with pytest.raises(ValueError):
+        pmat_to_index(np.ones((2, 3)))
+
+
+@pytest.mark.parametrize("n_chan", [8, 1024])
+def test_pfb_prototype(n_chan):
+    assert np.array_equal(pfb.pfb_prototype(n_chan),
+                          j_pfb.pfb_prototype(n_chan))
+
+
+def test_dft_matrices():
+    for n_chan in (8, 16):
+        for x, y in zip(pfb._dft_matrices(n_chan),
+                        j_pfb._dft_matrices(n_chan)):
+            assert np.array_equal(x, y)
+
+
+def test_rrc_taps():
+    for k in range(4):
+        assert np.array_equal(dqpsk.rrc_taps(2, frac_shift=k / 4),
+                              j_dqpsk.rrc_taps(2, frac_shift=k / 4))
+
+
+def test_band_matrix():
+    taps = tuple(j_dqpsk.rrc_taps(2).tolist())
+    assert np.array_equal(dqpsk._band_matrix(22, 128, taps),
+                          j_dqpsk._band_matrix(22, 128, taps))
+
+
+def test_rational_ratio():
+    for fs in (50_000.0, 2e5, 25.6e6, 48_000.0, 1e6 / 3):
+        assert channelizer._rational_ratio(fs, 36_000.0) == \
+            j_ch._rational_ratio(fs, 36_000.0)
+
+
+def test_resample_block_plan():
+    assert channelizer._N_PHASES == j_ch._N_PHASES
+    assert channelizer.DEMOD_RATE == j_ch.DEMOD_RATE
+    for n_in, skew in ((5000, -15.875), (1 << 20, -15.999), (300, 0.0)):
+        a = channelizer._resample_block_plan(n_in, 50_000.0, 36_000.0,
+                                             skew=skew)
+        b = j_ch._resample_block_plan(n_in, 50_000.0, 36_000.0, skew=skew)
+        assert np.array_equal(a[0], b[0]) and a[1:] == b[1:]
+
+
+def test_lloyd_max():
+    assert np.array_equal(stream.LLOYD_MAX_16, j_stream.LLOYD_MAX_16)
+
+
+def test_keystore_string():
+    import bench_mc_e2e
+    assert prod_fixture.KEYSTORE == bench_mc_e2e.KEYSTORE
+    assert prod_fixture.HEAD_NOISE == bench_mc_e2e.HEAD_NOISE
+
+
+@pytest.mark.parametrize("n_chan", [8, 1024])
+def test_pfb_bits_len_closed_form(n_chan):
+    """The closed form equals tetra_tpu's jax.eval_shape probe."""
+    from tetra_tpu.rx_multi import _pfb_demod_bits_len
+    fs = 25_000.0 * n_chan
+    base = n_chan * 16
+    lens = [base, base + 1, base + n_chan // 2 - 1, base + 7 * n_chan,
+            50 * n_chan + 3, 125 * n_chan, 333 * n_chan + 17]
+    for L in lens:
+        assert pfb_demod_bits_len(L, n_chan, fs, 2) == \
+            _pfb_demod_bits_len(L, n_chan, fs, 2), L
+
+
+def test_fixture_rebuilds_mixed_batch():
+    """The committed rows rebuild bench_mc_e2e.mixed_batch exactly."""
+    import bench_mc_e2e
+    want, n_enc = bench_mc_e2e.mixed_batch(16, 16, enc_frac=0.1)
+    got, m_enc = prod_fixture.mixed_bits(16, 0.1)
+    assert n_enc == m_enc and np.array_equal(got, want)
+    fx = prod_fixture.load()
+    assert int(fx["ref_n_encrypted"][0]) == round(1024 * 0.1)
+
+
+def test_fixture_bits_path_stats():
+    """The stored per-carrier JAX bits-path stats: their totals are the
+    recorded bits-path counts, and the port's bits entry reproduces the
+    rows of the first 12 carriers."""
+    import torch
+    from tetra_tpu_torch.rx_multi import MultiCarrierReceiver
+    fx = prod_fixture.load()
+    st = fx["jax_bits_stats"]
+    assert st.shape == (1024, 3)
+    assert st[:, 1].sum() == fx["ref_crc_ok"][1] and st[:, 2].sum() == 0
+    bits, _ = prod_fixture.mixed_bits(1024, 0.1, fx)
+    sub = bits[:12]
+    with prod_fixture.keystore_file() as ks:
+        rx = MultiCarrierReceiver([], fs=25e3 * 12, pfb_channels=np.arange(12),
+                                  keystore_path=ks, device=torch.device("cpu"))
+        cuts = np.linspace(0, sub.shape[1], 5).astype(int)
+        for k in range(4):
+            rx.process_bits(sub[:, cuts[k]:cuts[k + 1]], final=k == 3)
+    got = [(c.stats.bursts, c.stats.crc_ok, c.stats.crc_wrong)
+           for c in rx.carriers]
+    assert np.array_equal(np.asarray(got), st[:12])
+
+
+def test_fixture_chain_numpy_copies():
+    """safe_rolls, modulate, synthesize_wideband_fft and quantize_iq4c
+    equal tetra_tpu's byte for byte at 16 carriers."""
+    import bench_mc_e2e
+    fx = prod_fixture.load()
+    L = len(fx["plain"])
+    assert np.array_equal(prod_fixture.safe_rolls(16, L, int(fx["n_tail"])),
+                          bench_mc_e2e.safe_rolls(16, L, int(fx["n_tail"])))
+    bits, _ = prod_fixture.mixed_bits(16, 0.1, fx)
+    bits = bits[:, :4000]
+    base = dqpsk.modulate(bits, sps=2)
+    assert np.array_equal(base, j_dqpsk.modulate(bits, sps=2))
+    wide = channelizer.synthesize_wideband_fft(base, np.arange(16), 16)
+    assert np.array_equal(
+        wide, j_ch.synthesize_wideband_fft(base, np.arange(16), 16))
+    assert np.array_equal(stream.quantize_iq4c(wide.real, wide.imag),
+                          j_stream.quantize_iq4c(wide.real, wide.imag))

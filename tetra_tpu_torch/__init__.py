@@ -1,0 +1,13 @@
+"""PyTorch + CUDA port of the production wideband receive path.
+
+The package mirrors `tetra_tpu`'s layout (`io/`, `phy/`, `ops/`, `lmac/`,
+`fastpath.py`, `rx_multi.py`) and keeps its function names. It imports
+`torch` and never `jax`; the only `tetra_tpu` modules it uses are the
+jax-free host modules `constants`, `tdma`, `umac.native_exec` and
+`crypto.crypto`.
+
+The hand-written CUDA kernels live in `csrc/` and are built on first use
+by `tetra_tpu_torch.kernels` (nvcc, sm_90a). Every kernel wrapper runs
+its plain PyTorch version for CPU tensors and launches the kernel (or
+raises) for CUDA tensors.
+"""

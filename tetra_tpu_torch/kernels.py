@@ -1,0 +1,114 @@
+"""Build and load the port's CUDA kernels.
+
+All sources in `csrc/*.cu` compile with nvcc into ONE shared library
+with a plain C interface (no PyTorch headers: a few seconds per build),
+loaded with ctypes. The library lands in `build/` at the repository
+root (gitignored), named by a hash of the sources and flags, so an edit
+rebuilds it and an unchanged tree reuses it.
+
+Every exported launcher takes raw device pointers and the CUDA stream
+as `void*`, launches on that stream without synchronising, and returns
+`cudaGetLastError()`; `check()` turns a nonzero code into an exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+import torch
+
+__all__ = ["lib", "check", "stream_ptr", "build"]
+
+_CSRC = pathlib.Path(__file__).parent / "csrc"
+_BUILD = pathlib.Path(__file__).resolve().parent.parent / "build" / "kernels"
+_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# exported launcher name -> ctypes argtypes (all return int = cudaError_t)
+_SIGNATURES = {
+    "tt_viterbi_assembled": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                             _I, _P, _P, _I, _I, _P],
+    "tt_pfb_wola": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "tt_resample_rows": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _I,
+                         _P],
+    "tt_error_string": [_I],
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                       "first use and need the CUDA toolkit")
+
+
+def build() -> pathlib.Path:
+    """Compile csrc/*.cu into build/kernels/libtetra_kernels-<hash>.so
+    unless that file already exists; returns its path."""
+    srcs = sorted(_CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for s in srcs + sorted(_CSRC.glob("*.cuh")):
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    out = _BUILD / f"libtetra_kernels-{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError("nvcc failed:\n" + res.stdout + res.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def lib():
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            so = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(so, name)
+                fn.argtypes = argtypes
+                fn.restype = (ctypes.c_char_p if name == "tt_error_string"
+                              else ctypes.c_int)
+            _lib = so
+        return _lib
+
+
+def stream_ptr(device: torch.device) -> int:
+    """Raw handle of PyTorch's current CUDA stream on `device`."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a launcher returned a CUDA error code."""
+    if rc != 0:
+        msg = lib().tt_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype,
+                 ndim: int) -> None:
+    """Argument check shared by the kernel wrappers."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got {t.dim()}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,137 @@
+"""pi/4-DQPSK hard-decision demod (port of the streaming parts of
+tetra_tpu.phy.dqpsk) plus the host modulator used to build fixtures.
+
+Reference behaviour: src/demod/cqpsk.py (RRC matched filter, differential
+phasor) and src/float_to_bits.c (sign thresholds). Feed-forward design:
+an os-x bank of fractionally shifted RRC matched filters, the
+differential phasor over one symbol, one timing phase per carrier
+picked by the |sin 2θ| metric over the whole chunk, and sign decisions.
+Plain PyTorch: no TPU kernel sits on this stage of the path.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+__all__ = ["rrc_taps", "_band_matrix", "modulate", "bits_to_phase",
+           "_fir_real", "_stream_phasors", "demodulate_hard_ri"]
+
+# dibit -> phase step in units of pi/4 (reference float_to_bits.c:50-72)
+_BITS2STEP = {(0, 0): 1, (0, 1): 3, (1, 0): -1, (1, 1): -3}
+
+
+@functools.lru_cache(maxsize=8)
+def rrc_taps(sps: int, ntaps: int = None, alpha: float = 0.35,
+             frac_shift: float = 0.0) -> np.ndarray:
+    """Root-raised-cosine taps (gain-normalised), 11*sps taps by
+    default; frac_shift (samples) evaluates them off-grid."""
+    if ntaps is None:
+        ntaps = 11 * sps
+    t = (np.arange(ntaps) - (ntaps - 1) / 2.0 + frac_shift) / sps
+    taps = np.zeros(ntaps)
+    for i, x in enumerate(t):
+        if abs(x) < 1e-9:
+            taps[i] = 1.0 - alpha + 4 * alpha / np.pi
+        elif abs(abs(4 * alpha * x) - 1.0) < 1e-9:
+            taps[i] = (alpha / np.sqrt(2)) * (
+                (1 + 2 / np.pi) * np.sin(np.pi / (4 * alpha))
+                + (1 - 2 / np.pi) * np.cos(np.pi / (4 * alpha)))
+        else:
+            taps[i] = ((np.sin(np.pi * x * (1 - alpha))
+                        + 4 * alpha * x * np.cos(np.pi * x * (1 + alpha)))
+                       / (np.pi * x * (1 - (4 * alpha * x) ** 2)))
+    return (taps / np.sum(taps)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def _band_matrix(ntaps: int, block: int, taps_key) -> np.ndarray:
+    """Banded [block+ntaps-1, block] FIR-as-matmul matrix:
+    y[o] = sum_m x_ext[m] * band[m, o] with band[m, o] = kernel[m-o]."""
+    kernel = np.asarray(taps_key, dtype=np.float32)[::-1]
+    K = ntaps
+    band = np.zeros((block + K - 1, block), np.float32)
+    for o in range(block):
+        band[o:o + K, o] = kernel
+    return band
+
+
+def bits_to_phase(bits) -> np.ndarray:
+    """ubits [..., 2n] -> cumulative phase steps (pi/4 units) [..., n]."""
+    bits = np.asarray(bits).reshape(*np.asarray(bits).shape[:-1], -1, 2)
+    steps = np.zeros(bits.shape[:-1], dtype=np.int32)
+    for (b0, b1), v in _BITS2STEP.items():
+        steps = np.where((bits[..., 0] == b0) & (bits[..., 1] == b1), v, steps)
+    return steps
+
+
+def modulate(bits, sps: int = 2, ntaps: int | None = None) -> np.ndarray:
+    """Host fixture generator: ubits [..., 2n] -> complex baseband
+    [..., n*sps] (pi/4-DQPSK with RRC pulse shaping)."""
+    steps = bits_to_phase(bits)
+    phase = np.cumsum(steps, axis=-1) * (np.pi / 4.0)
+    symbols = np.exp(1j * phase).astype(np.complex64)
+    up = np.zeros(symbols.shape[:-1] + (symbols.shape[-1] * sps,), np.complex64)
+    up[..., ::sps] = symbols
+    taps = rrc_taps(sps, ntaps)
+    out = np.apply_along_axis(lambda r: np.convolve(r, taps * sps, mode="same"),
+                              -1, up)
+    return out.astype(np.complex64)
+
+
+def _fir_real(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
+    """Batched real FIR with same-length output: x [N, T], taps
+    [n_filt, ntaps] (or [ntaps]) -> [N, n_filt, T] (or [N, T]).
+
+    y[o] = sum_j x[o - ntaps//2 + j] * taps[ntaps-1-j], zero outside
+    the signal (tetra_tpu's banded-matmul FIR, as one convolution)."""
+    bank = np.atleast_2d(np.asarray(taps, np.float32))
+    ntaps = bank.shape[1]
+    pad = ntaps // 2
+    w = torch.as_tensor(np.ascontiguousarray(bank[:, ::-1]),
+                        device=x.device)[:, None, :]
+    xp = F.pad(x.to(torch.float32)[:, None, :], (pad, ntaps - 1 - pad))
+    y = F.conv1d(xp, w)
+    return y if np.ndim(taps) == 2 else y[:, 0]
+
+
+def _stream_phasors(re, im, sps: int, os: int):
+    """Matched filter (os-x fractional bank), differential phasor and
+    per-carrier timing-phase pick over the whole stream. re, im [C, T]
+    -> selected differential phasors (sel_r, sel_i) [C, T//sps]."""
+    bank = np.stack([rrc_taps(sps, frac_shift=k / os) for k in range(os)])
+    C, T = re.shape
+
+    def mf(x):
+        # [C, os, T] -> [C, T*os] with the os phases interleaved
+        return _fir_real(x, bank).permute(0, 2, 1).reshape(C, T * os)
+
+    fr, fi = mf(re), mf(im)
+    sps2 = os * sps
+    lr = F.pad(fr, (sps2, 0))[:, :-sps2]
+    li = F.pad(fi, (sps2, 0))[:, :-sps2]
+    dr = fr * lr + fi * li
+    di = fi * lr - fr * li
+    n = (dr.shape[-1] // sps2) * sps2
+    drp = dr[:, :n].reshape(C, n // sps2, sps2)
+    dip = di[:, :n].reshape(C, n // sps2, sps2)
+    mag2 = drp * drp + dip * dip
+    score = torch.mean(2.0 * torch.abs(drp * dip) / (mag2 + 1e-12), dim=-2)
+    best = torch.argmax(score, dim=-1)
+    sel_r = drp.gather(2, best[:, None, None].expand(C, n // sps2, 1))[..., 0]
+    sel_i = dip.gather(2, best[:, None, None].expand(C, n // sps2, 1))[..., 0]
+    return sel_r, sel_i
+
+
+def demodulate_hard_ri(re, im, sps: int = 2, os: int = 1) -> torch.Tensor:
+    """Trig-free hard decisions on the differential phasor d:
+    b0 = (Im d <= 0), b1 = (Re d < 0). re, im [C, T] float32 -> ubits
+    [C, 2*(T//sps)] int8. os > 1 adds fractional timing (os=4 on the
+    wideband path, where resampling leaves the symbol clock at an
+    arbitrary offset)."""
+    sel_r, sel_i = _stream_phasors(re, im, sps, os)
+    b0 = (sel_i <= 0).to(torch.int8)
+    b1 = (sel_r < 0).to(torch.int8)
+    return torch.stack([b0, b1], dim=-1).reshape(re.shape[0], -1)

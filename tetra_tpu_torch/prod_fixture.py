@@ -1,0 +1,121 @@
+"""The production capture, rebuilt without jax.
+
+`data/prod_mixed.npz` (written by tools/make_torch_fixture.py) holds the
+two padded 16-frame protocol-mix rows of tools/bench_mc_e2e.mixed_batch
+(plain and TEA1-encrypted) before the per-carrier circular roll, the
+noise-window length the rolls are confined to, and the JAX package's
+recorded decode counts for the 1024-carrier production stage. From them
+this module rebuilds the bench's companded wideband capture with numpy
+copies of the fixture chain: safe_rolls -> dqpsk.modulate ->
+channelizer.synthesize_wideband_fft -> stream.quantize_iq4c.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import pathlib
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from tetra_tpu_torch.io.stream import quantize_iq4c
+from tetra_tpu_torch.phy.channelizer import synthesize_wideband_fft
+from tetra_tpu_torch.phy.dqpsk import modulate
+
+__all__ = ["DATA_PATH", "KEYSTORE", "BITRATE", "load", "safe_rolls",
+           "mixed_bits", "wideband_capture", "keystore_file",
+           "run_receiver"]
+
+DATA_PATH = pathlib.Path(__file__).parent / "data" / "prod_mixed.npz"
+HEAD_NOISE = 731
+BITRATE = 36_000.0     # bits/s per carrier: the real-time reference
+
+# keystore of the encrypted carriers (tools/bench_mc_e2e.KEYSTORE):
+# network 262/42, TEA1 static cipher key 7 = bytes 0xA0..0xA9
+KEYSTORE = ("network mcc 262 mnc 42 ksg_type 1 security_class 2\n"
+            "key mcc 262 mnc 42 addr 0 key_type 1 key_num 7 "
+            "key A0A1A2A3A4A5A6A7A8A9\n")
+
+
+def load(path=DATA_PATH) -> dict:
+    """The fixture: rows 'plain' / 'enc' [L] uint8, 'n_tail', the JAX
+    package's recorded counts ('ref_<key>' = [wideband path, bits
+    path]) and its bits path's per-carrier (bursts, crc_ok, crc_wrong)
+    on the 1024-carrier rows ('jax_bits_stats' [1024, 3])."""
+    with np.load(path) as z:
+        d = {k: z[k] for k in z.files}
+    L = int(d["length"])
+    d["plain"] = np.unpackbits(d["plain_packed"])[:L]
+    d["enc"] = np.unpackbits(d["enc_packed"])[:L]
+    return d
+
+
+def safe_rolls(n_car: int, L: int, n_tail: int, head: int = HEAD_NOISE,
+               guard: int = 64) -> np.ndarray:
+    """Per-carrier circular roll offsets whose start lands in the
+    capture's screened noise (tail span or head span)."""
+    W = n_tail + head - 2 * guard
+    start0 = L - n_tail + guard
+    pos = (start0 + (np.arange(n_car, dtype=np.int64) * 997
+                     + np.arange(n_car) % 17) % W)
+    return (L - pos % L) % L
+
+
+def mixed_bits(n_car: int, enc_frac: float = 0.1, fixture: dict | None = None):
+    """[n_car, L] protocol-mix bits (the last round(enc_frac * n_car)
+    carriers encrypted), each row circularly rolled into the screened
+    noise window — tools/bench_mc_e2e.mixed_batch(n_car, 16, enc_frac)."""
+    fx = load() if fixture is None else fixture
+    plain, enc = fx["plain"], fx["enc"]
+    L = len(plain)
+    n_enc = max(1, int(round(n_car * enc_frac)))
+    bits = np.empty((n_car, L), np.uint8)
+    bits[: n_car - n_enc] = plain
+    bits[n_car - n_enc:] = enc
+    rolls = safe_rolls(n_car, L, int(fx["n_tail"]))
+    for c in range(n_car):
+        bits[c] = np.roll(bits[c], rolls[c])
+    return bits, n_enc
+
+
+def wideband_capture(bits: np.ndarray) -> np.ndarray:
+    """Per-carrier bits [C, L] -> the companded 4+4-bit wideband capture
+    (one byte per complex sample) with carrier c on PFB channel c of C."""
+    n_car = bits.shape[0]
+    base = modulate(bits, sps=2)
+    wide = synthesize_wideband_fft(base, np.arange(n_car), n_car)
+    return quantize_iq4c(wide.real, wide.imag)
+
+
+@contextlib.contextmanager
+def keystore_file():
+    """KEYSTORE written to a temporary file; yields its path."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "keys.txt")
+        with open(path, "w") as f:
+            f.write(KEYSTORE)
+        yield path
+
+
+def run_receiver(packed: np.ndarray, n_car: int, ks_path: str, device,
+                 n_chunks: int = 4):
+    """One pass of the production path: a fresh MultiCarrierReceiver
+    (carrier c on PFB channel c of n_car, native plane, keystore) fed
+    `packed` in n_chunks process_iq4c calls. Returns (receiver, wall
+    seconds; on a card the clock stops after a synchronize)."""
+    from tetra_tpu_torch.rx_multi import MultiCarrierReceiver
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cuts = np.linspace(0, len(packed), n_chunks + 1).astype(int)
+    sync()
+    t0 = time.perf_counter()
+    mrx = MultiCarrierReceiver(
+        [], fs=25_000.0 * n_car, pfb_channels=np.arange(n_car),
+        n_chan=n_car, keystore_path=ks_path, device=dev)
+    for k in range(n_chunks):
+        mrx.process_iq4c(packed[cuts[k]:cuts[k + 1]],
+                         final=k == n_chunks - 1)
+    sync()
+    return mrx, time.perf_counter() - t0

@@ -1,0 +1,122 @@
+"""Write tetra_tpu_torch/data/prod_mixed.npz, the production-capture
+fixture of the PyTorch port.
+
+The file holds the two padded 16-frame rows of bench_mc_e2e.mixed_batch
+(plain and TEA1-encrypted, before the per-carrier roll, bit-packed), the
+noise-window length n_tail the rolls are confined to, and the decode
+counts the JAX package recorded for the 1024-carrier production stage
+(bench.py stage 11 -> bench_mc_e2e.run_prod): the wideband path's and
+the pre-demodulated bits path's counts on the same bits, stored as a
+[low, high] window per key. It also stores the JAX bits path's
+per-carrier (bursts, crc_ok, crc_wrong) on the 1024 rolled rows,
+computed here in batches of 128 carriers (carriers are independent
+receivers on that path); their totals must equal the recorded bits-path
+counts.
+
+Runs on the CPU with jax (the rows come from tetra_tpu's TX chain):
+
+    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py
+"""
+import os
+import pathlib
+import sys
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+os.environ.setdefault("TETRA_TPU_TESTS", "1")   # no persistent jax cache
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
+
+import numpy as np
+
+import bench_mc_e2e as B
+
+N_FRAMES = 16
+# The 1024-carrier production stage as recorded by the JAX package
+# (BENCH_r05.json: mc_e2e_prod_* on the wideband path, mc_e2e_mixed_*
+# on the pre-demodulated bits of the same capture): decode counts only.
+REF_WINDOW = {
+    "crc_ok": (79_862, 79_872),
+    "crc_err": (0, 0),
+    "traffic_slots": (12_287, 12_288),
+    "tl_sdus": (36_859, 36_864),
+    "frag_ends": (4_094, 4_096),
+    "n_encrypted": (102, 102),
+}
+
+
+def rows(seed: int = 0):
+    """The padded plain / encrypted rows and n_tail, exactly as
+    bench_mc_e2e.mixed_batch builds them before the roll."""
+    rng = np.random.default_rng(seed)
+    plain = B.make_mixed_stream(rng, N_FRAMES, encrypted=False)
+    enc = B.make_mixed_stream(np.random.default_rng(seed + 1), N_FRAMES,
+                              encrypted=True)
+    L = B.common_len(N_FRAMES)
+    n_tail = L - len(plain)
+    plain = B.circular_safe_pad(plain, rng, L - len(plain))
+    enc = B.circular_safe_pad(enc, np.random.default_rng(seed + 2),
+                              L - len(enc))
+    return plain.astype(np.uint8), enc.astype(np.uint8), n_tail
+
+
+def bits_path_stats(bits, batch: int = 128):
+    """The JAX package's pre-demodulated bits path (native plane, 4
+    chunks, as bench_mc_e2e.run_mixed) over `bits` [n, L] in carrier
+    batches: per-carrier [n, 3] (bursts, crc_ok, crc_wrong) and the
+    event totals."""
+    import tempfile
+    from tetra_tpu.rx_multi import MultiCarrierReceiver
+    from tetra_tpu.umac.native_exec import EV
+    n_car, T = bits.shape
+    cuts = np.linspace(0, T, 5).astype(int)
+    stats = np.zeros((n_car, 3), np.int32)
+    tot = {"traffic_slots": 0, "tl_sdus": 0, "frag_ends": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        ks = pathlib.Path(tmp) / "keys.txt"
+        ks.write_text(B.KEYSTORE)
+        for lo in range(0, n_car, batch):
+            sub = bits[lo:lo + batch]
+            mc = MultiCarrierReceiver(np.zeros(len(sub)),
+                                      fs=25_000.0 * len(sub),
+                                      control_plane="native",
+                                      keystore_path=str(ks))
+            for k in range(4):
+                st = mc.process_bits(sub[:, cuts[k]:cuts[k + 1]],
+                                     final=k == 3)
+            stats[lo:lo + len(sub)] = [(s.bursts, s.crc_ok, s.crc_wrong)
+                                       for s in st]
+            kinds = np.concatenate([e["kind"] for e in mc.native_events])
+            tot["traffic_slots"] += int((kinds == EV.TRAFFIC).sum())
+            tot["tl_sdus"] += int((kinds == EV.TLSDU).sum())
+            tot["frag_ends"] += int((kinds == EV.FRAG_END).sum())
+    return stats, tot
+
+
+def main(out=ROOT / "tetra_tpu_torch" / "data" / "prod_mixed.npz"):
+    plain, enc, n_tail = rows()
+    # the stored rows must rebuild mixed_batch exactly
+    from tetra_tpu_torch import prod_fixture
+    fx = {"plain": plain, "enc": enc, "n_tail": n_tail}
+    got, n_enc = prod_fixture.mixed_bits(1024, 0.1, fx)
+    want, _ = B.mixed_batch(1024, N_FRAMES, enc_frac=0.1)
+    assert np.array_equal(got, want), "fixture rows do not rebuild mixed_batch"
+    stats, tot = bits_path_stats(got)
+    tot["crc_ok"] = int(stats[:, 1].sum())
+    tot["crc_err"] = int(stats[:, 2].sum())
+    for k, v in tot.items():
+        assert v == REF_WINDOW[k][1], (k, v, REF_WINDOW[k])
+    assert n_enc == REF_WINDOW["n_encrypted"][0]
+    refs = {f"ref_{k}": np.asarray(v, np.int64) for k, v in REF_WINDOW.items()}
+    out.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(out, plain_packed=np.packbits(plain),
+                        enc_packed=np.packbits(enc),
+                        length=np.int64(len(plain)), n_tail=np.int64(n_tail),
+                        n_frames=np.int64(N_FRAMES),
+                        jax_bits_stats=stats, **refs)
+    print(f"wrote {out} ({out.stat().st_size} bytes)")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,116 @@
+"""Where the time goes in the PyTorch port's production path, on a card.
+
+Runs the 1024-carrier production capture (tetra_tpu_torch.prod_fixture,
+4 chunks) through tetra_tpu_torch's MultiCarrierReceiver three times:
+  1. warm-up;
+  2. layer breakdown: each layer is wrapped with a synchronize before
+     and after, so its host-clock time includes its device work (this
+     pass is slower than an uninstrumented one by the added syncs);
+  3. torch.profiler over an uninstrumented pass: device time by kernel
+     name, summed device busy time and the device idle share of the
+     pass's wall time.
+Prints one JSON line per result.
+
+    python3 tools/profile_torch_prod.py [n_carriers]
+"""
+import collections
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+
+import torch
+
+from tetra_tpu.umac.native_exec import NativeControlPlane
+from tetra_tpu_torch import fastpath, prod_fixture
+from tetra_tpu_torch.lmac import fused, pipeline
+
+N_CHUNKS = 4
+
+
+def run(packed, n_car, ks_path):
+    return prod_fixture.run_receiver(packed, n_car, ks_path, "cuda",
+                                     N_CHUNKS)[1]
+
+
+def timed(acc, name, fn):
+    def wrapper(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        acc[name] += time.perf_counter() - t0
+        return out
+    return wrapper
+
+
+def main():
+    n_car = int(sys.argv[1]) if len(sys.argv) > 1 else 1024
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    bits, _ = prod_fixture.mixed_bits(n_car, 0.1)
+    packed = prod_fixture.wideband_capture(bits)
+    stream_s = bits.shape[1] / prod_fixture.BITRATE
+    with prod_fixture.keystore_file() as ks:
+        warm = run(packed, n_car, ks)
+        plain_wall = run(packed, n_car, ks)
+
+        acc = collections.defaultdict(float)
+        patches = [
+            (fastpath, "_iq_frontend", "front end (dequant+K2+K3+demod)"),
+            (fastpath, "sync_scan", "sync_scan"),
+            (pipeline, "decode_block", "SB1 pre-decode (K1 n80)"),
+            (fused, "decode_slots_fused", "fused FEC (assembly+K1 n288)"),
+            (fastpath.FastChunkPipeline, "_decode_segments",
+             "host bundle parse"),
+            (NativeControlPlane, "walk2", "host native walk"),
+        ]
+        saved = [(m, a, getattr(m, a)) for m, a, _ in patches]
+        for m, a, name in patches:
+            setattr(m, a, timed(acc, name, getattr(m, a)))
+        try:
+            inst_wall = run(packed, n_car, ks)
+        finally:
+            for m, a, fn in saved:
+                setattr(m, a, fn)
+        layers = dict(acc)
+        layers["rest (compaction, fill, packing, transfers, Python)"] = \
+            inst_wall - sum(acc.values())
+        print(json.dumps({"card": card, "carriers": n_car,
+                          "warm_s": warm, "wall_s": plain_wall,
+                          "realtime_carriers": n_car * stream_s / plain_wall,
+                          "instrumented_wall_s": inst_wall,
+                          "layers_s": layers}), flush=True)
+
+        from torch.profiler import profile, ProfilerActivity
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prof_wall = run(packed, n_car, ks)
+    from torch.autograd import DeviceType
+    rows = []
+    busy_us = 0.0
+    for e in prof.key_averages():
+        # device-side events only (kernels, memcpy, memset): the CPU ops
+        # that launched them carry the same time again
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+        rows.append((dev_us, e.key, e.count))
+        busy_us += dev_us
+    rows.sort(reverse=True)
+    print(json.dumps({"card": card, "profiled_wall_s": prof_wall,
+                      "device_busy_s": busy_us / 1e6,
+                      "device_idle_share": 1.0 - busy_us / 1e6 / prof_wall,
+                      "top_kernels": [{"name": k[:80], "device_ms": u / 1e3,
+                                       "calls": c}
+                                      for u, k, c in rows[:15]]}),
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()
