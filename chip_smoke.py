@@ -11,15 +11,25 @@ Phases (one JSON line each):
               version on the card, at the main path's shapes and at the
               CPU-test shapes: K1 (assembled Viterbi + CRC, n_sym 288
               and 80) bit-identical, K2 (PFB WOLA) and K3 (resampler)
-              within max|d| <= 1e-4 * max|plain|; times of both.
+              within max|d| <= 1e-4 * max|plain|, K4 (f32 segmented
+              Viterbi, n_sym 288 at ~21.5k rows and 80) bit-identical;
+              times of both.
   3. small    an 8-carrier production capture through the receiver on
               the card and on the CPU (plain versions): identical
               per-carrier stats and native event arrays.
   4. prod     the 1024-carrier production capture (25 kHz spacing,
               fs 25.6 MS/s, 4 chunks, 102 TEA1-encrypted carriers)
               once warm and once timed; zero CRC errors, decode counts
-              inside the window the JAX package recorded, and every
-              kernel launched by the timed run.
+              inside the window the JAX package recorded, and K1, K2
+              and K3 launched by the timed run.
+  5. soft_small  the 8-carrier snr8 capture through the soft receiver
+              (demod="soft") on the card and on the CPU: identical
+              stats and events.
+  6. snr8     the 1024-carrier clean SYNC/SCH_F capture with AWGN at
+              8 dB per-channel SNR through the soft receiver (4 chunks),
+              once warm and once timed; crc_ok >= 0.90 x 81,920, crc_err
+              <= 2 x the JAX record, and K1..K4 launched by the timed
+              run.
 Then the kernel summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits nonzero without that line when
 there is no card, the build fails, or any check fails.
@@ -33,6 +43,8 @@ import traceback
 TOL = 1e-4          # K2/K3: max |kernel - plain| <= TOL * max |plain|
 N_CAR = 1024
 N_CHUNKS = 4
+K4_ROWS = 21_504    # rows per chunk of the snr8 path's soft FEC
+CLEAN_CRC_OK = 81_920
 
 
 def emit(obj):
@@ -68,19 +80,23 @@ def rel_err(got, want) -> tuple[float, float]:
     return d, scale
 
 
-def reset_launches():
+def _wrappers() -> dict:
     from tetra_tpu_torch.ops.viterbi_assembled import decode_assembled
+    from tetra_tpu_torch.ops.viterbi_segmented import decode_segmented_k4
     from tetra_tpu_torch.phy.pfb import pfb_channelize_rows, resample_rows
-    for fn in (decode_assembled, pfb_channelize_rows, resample_rows):
+    return {"viterbi_assembled": decode_assembled,
+            "pfb_wola": pfb_channelize_rows,
+            "resample_rows": resample_rows,
+            "viterbi_segmented": decode_segmented_k4}
+
+
+def reset_launches():
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
 def launches() -> dict:
-    from tetra_tpu_torch.ops.viterbi_assembled import decode_assembled
-    from tetra_tpu_torch.phy.pfb import pfb_channelize_rows, resample_rows
-    return {"viterbi_assembled": decode_assembled.launches,
-            "pfb_wola": pfb_channelize_rows.launches,
-            "resample_rows": resample_rows.launches}
+    return {k: fn.launches for k, fn in _wrappers().items()}
 
 
 def slot_batch(n_rows: int, dev, seed: int = 1):
@@ -203,6 +219,80 @@ def check_pfb(dev, n_chan: int, T: int, seed: int) -> dict:
     return res
 
 
+def soft_slot_rows(dev, n_car: int = 64):
+    """Real soft FEC rows: the snr8 capture at n_car carriers through the
+    soft front end (K2, K3, soft demod), the tolerant sync scan on its
+    hard decisions, and every emitted slot assembled to mother order.
+    Returns (soft [n, 1152] float32, rm [n, 3] int8) on dev."""
+    import torch
+    from tetra_tpu import constants as C
+    from tetra_tpu_torch import fastpath, prod_fixture
+    from tetra_tpu_torch.lmac.fused import assemble_soft, fused_tables
+    from tetra_tpu_torch.phy.sync_vec import sync_scan
+    raw = torch.as_tensor(prod_fixture.snr8_capture(n_car)).to(dev)
+    soft = fastpath._iq_frontend(raw, None, "iq4c", n_car, 25_000.0 * n_car,
+                                 2, soft=True)
+    z = torch.zeros(n_car, dtype=torch.int32, device=dev)
+    _, out = sync_scan((soft < 0).to(torch.int8), z, z, z, z, z, 0,
+                       soft.shape[1] // 64, tol=2)
+    t, c = torch.nonzero(out["emit"], as_tuple=True)
+    pos = (c * soft.shape[1] + out["slot"][t, c])[:, None] \
+        + torch.arange(C.BITS_PER_TS, device=dev)
+    rows = soft.reshape(-1)[pos].to(torch.float32)
+    kinds = out["col"][t, c].to(torch.int64)
+    init = ((42 << 6 | 262 << 20 | 1) << 2) | C.SCRAMB_INIT
+    inits = torch.full_like(kinds, init)
+    x, rm, _ = assemble_soft(rows, inits, kinds, fused_tables(dev))
+    return x, rm
+
+
+def check_k4(dev, n_rows: int) -> dict:
+    """K4 vs its plain version: n_sym 288 with restarts at (80, 144,
+    224) on n_rows rows (half real soft slots of the snr8 capture, the
+    rest random soft values of the path's alphabet (int8 x 127, ~3/8
+    erasures) and dyadic fractions, random restart masks), and n_sym 80
+    without restarts at the CPU test's shape [32, 320]. Bits must be
+    identical."""
+    import torch
+    from tetra_tpu_torch.lmac.fused import BOUNDARIES, N_SYM
+    from tetra_tpu_torch.ops.viterbi import decode_segmented
+    from tetra_tpu_torch.ops.viterbi_segmented import decode_segmented_k4
+    g = torch.Generator(device="cpu").manual_seed(11)
+    real, rm_real = soft_slot_rows(dev)
+    n_real = n_rows // 2
+    pick = torch.randint(0, real.shape[0], (n_real,), generator=g).to(dev)
+    n_rand = n_rows - n_real
+    n_dy = n_rand // 8
+    rand = (torch.randint(-124, 125, (n_rand, 4 * N_SYM), generator=g)
+            * 127).to(torch.float32)
+    rand[torch.rand(rand.shape, generator=g) < 0.375] = 0
+    rand[:n_dy] = torch.randint(-8, 9, (n_dy, 4 * N_SYM),
+                                generator=g).to(torch.float32) * 0.25
+    x = torch.cat([real[pick], rand.to(dev)]).contiguous()
+    rm = torch.cat([rm_real[pick],
+                    torch.randint(0, 2, (n_rand, 3), generator=g)
+                    .to(torch.int8).to(dev)]).contiguous()
+    x80 = rand[n_dy:n_dy + 32, :320].contiguous().to(dev)
+    rm80 = torch.zeros((32, 0), dtype=torch.int8, device=dev)
+    res = {"rows": n_rows, "real_rows": n_real,
+           "distinct_real_slots": int(real.shape[0])}
+    worst = 0
+    for name, xi, ri, ns, bnd in (("n288", x, rm, N_SYM, BOUNDARIES),
+                                  ("n80", x80, rm80, 80, ())):
+        bk = decode_segmented_k4(xi, ri, ns, bnd)
+        bp = decode_segmented(xi, ri, ns, bnd)
+        res[f"mismatches_{name}"] = int((bk != bp).sum())
+        worst = max(worst, int((bk.int() - bp.int()).abs().max()))
+        res[f"ms_{name}"] = cuda_ms(lambda: decode_segmented_k4(xi, ri, ns,
+                                                                bnd))
+        res[f"plain_ms_{name}"] = cuda_ms(
+            lambda: decode_segmented(xi, ri, ns, bnd), reps=2)
+    res["max_abs_err"] = worst
+    if res["mismatches_n288"] or res["mismatches_n80"]:
+        raise AssertionError(f"K4 differs from its plain version: {res}")
+    return res
+
+
 def counts(mrx) -> dict:
     import numpy as np
     from tetra_tpu.umac.native_exec import EV
@@ -214,26 +304,86 @@ def counts(mrx) -> dict:
             "frag_ends": int((kinds == EV.FRAG_END).sum())}
 
 
-def check_small(ks_path: str, dev) -> dict:
-    """8 carriers at fs = 200 kHz (the CPU tests' production fixture):
-    the receiver on the card equals the receiver on the CPU."""
+def card_vs_cpu(packed, ks_path, dev, demod: str = "hard"):
+    """An 8-carrier capture through the receiver on the card and on the
+    CPU (plain versions): (card receiver, per-carrier stats equal,
+    native event arrays equal)."""
     import numpy as np
     from tetra_tpu_torch import prod_fixture
-    bits, _ = prod_fixture.mixed_bits(8, 0.25)
-    packed = prod_fixture.wideband_capture(bits)
-    gpu, _ = prod_fixture.run_receiver(packed, 8, ks_path, dev, 2)
-    cpu, _ = prod_fixture.run_receiver(packed, 8, ks_path, "cpu", 2)
+    gpu, _ = prod_fixture.run_receiver(packed, 8, ks_path, dev, 2, demod)
+    cpu, _ = prod_fixture.run_receiver(packed, 8, ks_path, "cpu", 2, demod)
     st = lambda m: [(c.stats.bursts, c.stats.crc_ok, c.stats.crc_wrong)
                     for c in m.carriers]
     same_ev = all(
         np.array_equal(np.concatenate([e[k] for e in gpu.native_events]),
                        np.concatenate([e[k] for e in cpu.native_events]))
-        for k in ("carrier", "kind", "a", "b", "c", "d"))
-    res = {"carriers": 8, "stats_equal": st(gpu) == st(cpu),
-           "events_equal": bool(same_ev), **counts(gpu)}
+        for k in ("carrier", "kind", "a", "b", "c", "d", "payload"))
+    return gpu, st(gpu) == st(cpu), bool(same_ev)
+
+
+def check_small(ks_path: str, dev) -> dict:
+    """8 carriers at fs = 200 kHz (the CPU tests' production fixture):
+    the receiver on the card equals the receiver on the CPU."""
+    from tetra_tpu_torch import prod_fixture
+    bits, _ = prod_fixture.mixed_bits(8, 0.25)
+    gpu, same_st, same_ev = card_vs_cpu(prod_fixture.wideband_capture(bits),
+                                        ks_path, dev)
+    res = {"carriers": 8, "stats_equal": same_st, "events_equal": same_ev,
+           **counts(gpu)}
     if not (res["stats_equal"] and res["events_equal"]
             and res["crc_err"] == 0 and res["crc_ok"] > 0):
         raise AssertionError(f"small capture: card and CPU differ: {res}")
+    return res
+
+
+def check_soft_small(dev) -> dict:
+    """The snr8 capture at 8 carriers (fs = 200 kHz) through the soft
+    receiver on the card and on the CPU: identical stats and events."""
+    from tetra_tpu_torch import prod_fixture
+    gpu, same_st, same_ev = card_vs_cpu(prod_fixture.snr8_capture(8), None,
+                                        dev, "soft")
+    res = {"carriers": 8, "stats_equal": same_st, "events_equal": same_ev,
+           "crc_ok": sum(c.stats.crc_ok for c in gpu.carriers),
+           "crc_err": sum(c.stats.crc_wrong for c in gpu.carriers)}
+    if not (res["stats_equal"] and res["events_equal"]
+            and res["crc_ok"] > 0):
+        raise AssertionError(f"soft capture: card and CPU differ: {res}")
+    return res
+
+
+def run_snr8(dev, card: str) -> dict:
+    """The 1024-carrier snr8 stage through the soft receiver: warm pass,
+    then a timed pass with the launch counts set to 0 just before it."""
+    from tetra_tpu_torch import prod_fixture
+    t0 = time.perf_counter()
+    fx = prod_fixture.load_snr8()
+    packed = prod_fixture.snr8_capture(N_CAR, fx)
+    T_bits = len(fx["row"])
+    build_s = time.perf_counter() - t0
+    _, warm_s = prod_fixture.run_receiver(packed, N_CAR, None, dev,
+                                          N_CHUNKS, "soft")
+    reset_launches()
+    mrx, wall = prod_fixture.run_receiver(packed, N_CAR, None, dev,
+                                          N_CHUNKS, "soft")
+    n_launch = launches()
+    crc_ok = sum(c.stats.crc_ok for c in mrx.carriers)
+    crc_err = sum(c.stats.crc_wrong for c in mrx.carriers)
+    jax_rec = {"crc_ok": int(fx["snr8_crc_ok"]),
+               "crc_err": int(fx["snr8_crc_err"]),
+               "crc_ok_frac": round(int(fx["snr8_crc_ok"])
+                                    / int(fx["clean_crc_ok"]), 4)}
+    res = {"carriers": N_CAR, "chunks": N_CHUNKS,
+           "snr_db": float(fx["snr_db"]),
+           "bits_per_carrier": T_bits, "wideband_samples": int(len(packed)),
+           "capture_build_s": build_s, "warm_s": warm_s, "wall_s": wall,
+           "realtime_carriers": N_CAR * T_bits / prod_fixture.BITRATE / wall,
+           "card": card, "crc_ok": crc_ok, "crc_err": crc_err,
+           "crc_ok_frac": crc_ok / CLEAN_CRC_OK, "jax_record": jax_rec,
+           "launches": n_launch}
+    if min(n_launch.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched: {n_launch}")
+    if crc_ok < 0.90 * CLEAN_CRC_OK or crc_err > 2 * jax_rec["crc_err"]:
+        raise AssertionError(f"snr8 decode outside its limits: {res}")
     return res
 
 
@@ -267,6 +417,8 @@ def main() -> int:
 
         k1 = check_k1(dev, 20_000)
         emit({"phase": "kernels", "kernel": "K1", **k1})
+        k4 = check_k4(dev, K4_ROWS)
+        emit({"phase": "kernels", "kernel": "K4", **k4})
         # main-path shapes: one wideband chunk of the 1024-carrier capture
         # plus its overlap-save history; CPU-test shapes: C = 8
         k23 = check_pfb(dev, N_CAR, 6_672_000, 1)
@@ -314,8 +466,14 @@ def main() -> int:
               "launches": n_launch})
         if not all(in_window.values()):
             raise AssertionError("decode counts outside the JAX window")
-        if min(n_launch.values()) <= 0:
+        if min(n_launch[k] for k in ("viterbi_assembled", "pfb_wola",
+                                     "resample_rows")) <= 0:
             raise AssertionError(f"a kernel was not launched: {n_launch}")
+
+        emit({"phase": "soft_small", **check_soft_small(dev)})
+        snr8 = run_snr8(dev, card)
+        emit({"phase": "snr8", **snr8})
+        s_launch = snr8["launches"]
 
         emit({"kernels": [
             {"name": "viterbi_assembled", "route": "cuda",
@@ -336,7 +494,14 @@ def main() -> int:
              "replaces": "tetra_tpu/phy/pfb_pallas.py:337",
              "launches": n_launch["resample_rows"],
              "max_abs_err": k23["k3_max_abs_err"],
-             "ms": k23["k3_ms"], "plain_ms": k23["k3_plain_ms"]}]})
+             "ms": k23["k3_ms"], "plain_ms": k23["k3_plain_ms"]},
+            {"name": "viterbi_segmented", "route": "cuda",
+             "source": "tetra_tpu_torch/csrc/viterbi_segmented.cu",
+             "replaces": "tetra_tpu/ops/viterbi_pallas.py:967",
+             "launches": s_launch["viterbi_segmented"],
+             "max_abs_err": float(k4["max_abs_err"]),
+             "ms": k4["ms_n288"], "plain_ms": k4["plain_ms_n288"],
+             "ms_n80": k4["ms_n80"], "plain_ms_n80": k4["plain_ms_n80"]}]})
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,9 @@ import torch
 
 from tetra_tpu_torch.lmac import fused
 from tetra_tpu_torch.lmac.pipeline import _sb1_decoder
+from tetra_tpu_torch.ops.viterbi import decode_segmented
 from tetra_tpu_torch.ops.viterbi_assembled import decode_assembled_plain
+from tetra_tpu_torch.ops.viterbi_segmented import decode_segmented_k4
 from tetra_tpu_torch.phy import pfb
 
 pytestmark = pytest.mark.cuda
@@ -46,6 +48,25 @@ def test_k1_matches_plain(shape):
     assert torch.equal(bits, bp) and torch.equal(ok, okp)
 
 
+@pytest.mark.parametrize("shape", ["n288", "n80", "n77_two_restarts"])
+def test_k4_matches_plain(shape):
+    """K4 bit-identical to its plain version on integer soft values of
+    the soft path's alphabet and on dyadic fractions, random restarts."""
+    dev = cuda_device()
+    g = torch.Generator().manual_seed(5)
+    n_sym, bnd = {"n288": (288, fused.BOUNDARIES), "n80": (80, ()),
+                  "n77_two_restarts": (77, (20, 52))}[shape]
+    B = 3000
+    x = (torch.randint(-124, 125, (B, 4 * n_sym), generator=g) * 127
+         ).to(torch.float32)
+    x[torch.rand(x.shape, generator=g) < 0.375] = 0
+    x[:500] = torch.randint(-8, 9, (500, 4 * n_sym), generator=g) * 0.25
+    rm = torch.randint(0, 2, (B, len(bnd)), generator=g).to(torch.int8)
+    x, rm = x.to(dev), rm.to(dev)
+    bits = decode_segmented_k4(x, rm, n_sym, bnd)
+    assert torch.equal(bits, decode_segmented(x, rm, n_sym, bnd))
+
+
 @pytest.mark.parametrize("n_chan,T", [(8, 40_000), (1024, 400_000),
                                       (12, 30_000)])
 def test_k2_k3_match_plain(n_chan, T):
@@ -73,3 +94,9 @@ def test_wrappers_reject_bad_arguments():
     with pytest.raises(TypeError):
         code(x, torch.zeros(4, dtype=torch.int32, device=dev),
              torch.zeros((4, 0), dtype=torch.int8, device=dev))
+    soft = torch.zeros((4, 1152), dtype=torch.float32, device=dev)
+    rm = torch.zeros((4, 3), dtype=torch.int8, device=dev)
+    with pytest.raises(TypeError):
+        decode_segmented_k4(soft.double(), rm, 288, fused.BOUNDARIES)
+    with pytest.raises(ValueError):
+        decode_segmented_k4(soft, rm, 290, fused.BOUNDARIES)

@@ -116,7 +116,7 @@ print("ok")
 @pytest.mark.parametrize("kwargs", [
     dict(pfb_channels=None),
     dict(control_plane="python"),
-    dict(demod="soft"),
+    dict(tl_sdu_sink=print),
     dict(mesh=object()),
     dict(gsmtap_host="127.0.0.1"),
     dict(dumpdir="x"),

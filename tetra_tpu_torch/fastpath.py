@@ -16,9 +16,16 @@ control plane. If a chunk emits more slots than the row budget G, the
 chunk re-runs from its saved inputs with the sufficient budget
 (`_overflow_rerun`).
 
+Soft mode (soft=True, the receiver's demod="soft"): the demod emits
+int8 reliabilities (positive = bit 0) and the ring carries them; the
+sync scan (with `tol` training-sequence bit errors allowed), the SB1
+pre-decode and the payload sections read hard bits (soft < 0), and the
+FEC gathers the soft slot rows and decodes them with kernel K4. Hard
+bits fed to a soft pipeline become full-confidence ±31 values.
+
 The bundle bytes are identical to tetra_tpu's for the same inputs.
-Sharded meshes, the soft pipeline and the traffic-payload arrays
-(t4_full / t4_b2, used only by dump files) are not ported.
+Sharded meshes and the traffic-payload arrays (t4_full / t4_b2, used
+only by dump files) are not ported.
 """
 from __future__ import annotations
 
@@ -45,6 +52,7 @@ _SEC_BYTES = 36           # ceil(282 / 8): worst-kind section total
 SIDE_I32 = 8              # n_slots tail st bs nb nfs si scramb
 RING_PAD = RING_BITS + 512   # device-resident tail: ring depth + slack
 G_SLACK = 3               # per-carrier row-budget slack over chunk/510
+SOFT_ONE = 31             # soft value of a full-confidence hard bit
 
 
 def max_slots(steps: int, feed: int) -> int:
@@ -59,11 +67,13 @@ def _to_i32(x: torch.Tensor) -> torch.Tensor:
 
 def _fused_chunk_body(ring, chunk, end_rel: int, rebase: int, st0, bs0,
                       nb0, nfs0, fed_rel: int, scr0, steps: int, feed: int,
-                      g_rows: int):
+                      g_rows: int, soft: bool = False, tol: int = 0):
     """One ingest chunk on the device.
 
     ring [B, RING_PAD] int8: last RING_PAD stream bits (carry).
     chunk [B, lc_pad] int8: this chunk's new bits.
+    soft: ring and chunk hold int8 soft values instead of bits; tol:
+    the sync scan's training-sequence bit-error tolerance.
     end_rel: window-relative stream end; rebase: window base delta
     since the carry was written; fed_rel: scan position in this window.
     st0, bs0, nb0, nfs0 [B] int32 sync carry; scr0 [B] int64 cell
@@ -75,11 +85,12 @@ def _fused_chunk_body(ring, chunk, end_rel: int, rebase: int, st0, bs0,
     B = ring.shape[0]
     G = g_rows
     win = torch.cat([ring, chunk.to(torch.int8)], dim=1)
+    bits = (win < 0).to(torch.int8) if soft else win
     L = win.shape[1]
 
     (st, bs, nb, nfs, si, _), out = sync_scan(
-        win, st0, bs0 - rebase, nb0, nfs0 - rebase, st0 * 0, fed_rel,
-        steps, feed)
+        bits, st0, bs0 - rebase, nb0, nfs0 - rebase, st0 * 0, fed_rel,
+        steps, feed, tol)
 
     # ---- GLOBAL slot compaction: one stable argsort over carriers x
     # steps; emitted slots get carrier-major keys c*steps + t, holes
@@ -110,7 +121,7 @@ def _fused_chunk_body(ring, chunk, end_rel: int, rebase: int, st0, bs0,
     # ---- slot bits [G, 510]: one gather from the window
     pos = (gcar * L + soff)[:, None] \
         + torch.arange(C.BITS_PER_TS, device=dev)[None, :]
-    flat = win.reshape(-1)[pos]
+    flat = bits.reshape(-1)[pos]
 
     # ---- SB1 pre-decode + scrambling-code forward fill
     # (tetra_lower_mac.c:283-310); rows are carrier-major, so the fill
@@ -145,7 +156,12 @@ def _fused_chunk_body(ring, chunk, end_rel: int, rebase: int, st0, bs0,
     scr_final = scr_ext[:B]
 
     # ---- kind-compacted FEC decode + per-kind section packing
-    res = fused.decode_slots_fused(flat, inits, kind)
+    if soft:
+        soft_rows = win.reshape(-1)[pos].to(torch.float32)
+        res = fused.decode_slots_fused(soft_rows, inits, kind,
+                                       soft_input=True)
+    else:
+        res = fused.decode_slots_fused(flat, inits, kind)
     pk = _pack_selected(res, kind)                       # [G, 408] int8
 
     A, Bs, K = pk[:, :268], pk[:, 268:392], pk[:, 392:406]
@@ -180,20 +196,24 @@ def _fused_chunk_body(ring, chunk, end_rel: int, rebase: int, st0, bs0,
     return bundle, new_ring, (st, bs, nb, nfs, scr_final)
 
 
-def _unpack(packed, lc_pad: int):
-    """[B, lc_pad/8] uint8 MSB-first -> [B, lc_pad] int8 bits."""
+def _unpack(packed, lc_pad: int, soft: bool = False):
+    """[B, lc_pad/8] uint8 MSB-first -> [B, lc_pad] int8 bits, or on a
+    soft pipeline their full-confidence soft values ±SOFT_ONE."""
     shifts = torch.arange(7, -1, -1, device=packed.device)
     B = packed.shape[0]
-    return ((packed.to(torch.int32)[..., None] >> shifts) & 1) \
-        .to(torch.int8).reshape(B, lc_pad)
+    b = ((packed.to(torch.int32)[..., None] >> shifts) & 1).reshape(B, lc_pad)
+    if soft:
+        b = (1 - 2 * b) * SOFT_ONE
+    return b.to(torch.int8)
 
 
 def fused_chunk(ring, packed, end_rel, rebase, st0, bs0, nb0, nfs0, fed_rel,
-                scr0, steps: int, feed: int, g_rows: int, lc_pad: int):
+                scr0, steps: int, feed: int, g_rows: int, lc_pad: int,
+                soft: bool = False, tol: int = 0):
     """Packed-bits entry: packed [B, lc_pad//8] uint8 (MSB first)."""
-    return _fused_chunk_body(ring, _unpack(packed, lc_pad), end_rel, rebase,
-                             st0, bs0, nb0, nfs0, fed_rel, scr0, steps, feed,
-                             g_rows)
+    return _fused_chunk_body(ring, _unpack(packed, lc_pad, soft), end_rel,
+                             rebase, st0, bs0, nb0, nfs0, fed_rel, scr0,
+                             steps, feed, g_rows, soft, tol)
 
 
 def _iq_to_ri(fmt: str, raw):
@@ -210,33 +230,36 @@ def _iq_to_ri(fmt: str, raw):
 
 
 def _iq_frontend(raw, channel_idx, fmt: str, n_chan: int, fs: float,
-                 sps: int):
-    """Wideband raw samples -> per-carrier hard bits [C, Lf]:
-    dequantize -> PFB channelize -> resample -> DQPSK demod (os=4)."""
+                 sps: int, soft: bool = False):
+    """Wideband raw samples -> per-carrier hard bits (or int8 soft
+    values, soft=True) [C, Lf]: dequantize -> PFB channelize ->
+    resample -> DQPSK demod (os=4)."""
     re, im = _iq_to_ri(fmt, raw)
     cr, ci = pfb.pfb_to_demod_rate_ri(re, im, channel_idx, n_chan, fs)
-    return dqpsk.demodulate_hard_ri(cr, ci, sps=sps, os=4)
+    demod = dqpsk.demodulate_soft_ri if soft else dqpsk.demodulate_hard_ri
+    return demod(cr, ci, sps=sps, os=4)
 
 
 def fused_chunk_iq(ring, raw, channel_idx, end_rel, rebase, st0, bs0, nb0,
                    nfs0, fed_rel, scr0, fmt: str, n_chan: int, fs: float,
                    sps: int, keep: int, steps: int, feed: int, g_rows: int,
-                   lc_pad: int):
+                   lc_pad: int, soft: bool = False, tol: int = 0):
     """Wideband-IQ entry: raw quantized RF samples -> the chunk bundle.
     keep: how many trailing demod bits are NEW stream bits."""
-    bits_full = _iq_frontend(raw, channel_idx, fmt, n_chan, fs, sps)
+    bits_full = _iq_frontend(raw, channel_idx, fmt, n_chan, fs, sps, soft)
     chunk = bits_full[:, bits_full.shape[1] - keep:]
     if lc_pad != keep:
         chunk = F.pad(chunk, (0, lc_pad - keep))
     return _fused_chunk_body(ring, chunk, end_rel, rebase, st0, bs0, nb0,
-                             nfs0, fed_rel, scr0, steps, feed, g_rows)
+                             nfs0, fed_rel, scr0, steps, feed, g_rows, soft,
+                             tol)
 
 
 def _iq_frontend_bits(raw, channel_idx, fmt: str, n_chan: int, fs: float,
-                      sps: int, keep: int):
+                      sps: int, keep: int, soft: bool = False):
     """Front end alone (short-chunk absorb path): the trailing `keep`
-    new bits."""
-    bits_full = _iq_frontend(raw, channel_idx, fmt, n_chan, fs, sps)
+    new bits (or soft values)."""
+    bits_full = _iq_frontend(raw, channel_idx, fmt, n_chan, fs, sps, soft)
     return bits_full[:, bits_full.shape[1] - keep:]
 
 
@@ -256,9 +279,9 @@ def _absorb_bits(ring, bits):
     return win[:, win.shape[1] - RING_PAD:].contiguous()
 
 
-def _absorb(ring, packed, lc: int, lc_pad: int):
+def _absorb(ring, packed, lc: int, lc_pad: int, soft: bool = False):
     """Short-chunk path for packed input: append lc bits to the ring."""
-    win = torch.cat([ring, _unpack(packed, lc_pad)], dim=1)
+    win = torch.cat([ring, _unpack(packed, lc_pad, soft)], dim=1)
     return win[:, lc:lc + RING_PAD].contiguous()
 
 
@@ -303,12 +326,19 @@ def carry_from_numpy(ring, carry, carry_base: int, end: int, fed: int,
 class FastChunkPipeline:
     """Host driver: device-resident ring + sync/scramble carry, deferred
     single-fetch results. Submit chunks with `submit` / `submit_iq`,
-    fetch and decode with `collect`."""
+    fetch and decode with `collect`.
 
-    def __init__(self, n_carriers: int, device):
+    soft=True: the ring carries int8 soft values, submit_iq demodulates
+    soft and the FEC runs kernel K4; tol (training-sequence bit errors
+    the sync scan accepts) defaults to 2 on a soft pipeline, 0 else."""
+
+    def __init__(self, n_carriers: int, device, soft: bool = False,
+                 tol: int | None = None):
         self.n = n_carriers
         self.device = torch.device(device)
         self.feed = FEED_BITS
+        self.soft = soft
+        self.tol = (2 if soft else 0) if tol is None else tol
         z = lambda v=0: torch.full((n_carriers,), v, dtype=torch.int32,
                                    device=self.device)
         # positions are relative to carry_base; abs 0 == rel RING_PAD
@@ -339,16 +369,16 @@ class FastChunkPipeline:
         s = self.state
         steps = int((s.end + Lc - s.fed) // self.feed)
         if steps <= 0:
-            s.ring = _absorb(s.ring, packed, Lc, lc_pad)
+            s.ring = _absorb(s.ring, packed, Lc, lc_pad, self.soft)
             s.end += Lc
             return None
-        feed = self.feed
+        feed, soft, tol = self.feed, self.soft, self.tol
 
         def make_fn(ring0, rebase, end_rel, fed_rel, st, bs, nb, nfs):
             def dispatch(scr, g_rows):
                 return fused_chunk(ring0, packed, end_rel, rebase, st, bs,
                                    nb, nfs, fed_rel, scr, steps, feed,
-                                   g_rows, lc_pad)
+                                   g_rows, lc_pad, soft, tol)
             return dispatch
         return self._submit_common(Lc, steps, make_fn)
 
@@ -363,18 +393,18 @@ class FastChunkPipeline:
         raw_d = torch.as_tensor(np.asarray(raw)).to(self.device)
         if steps <= 0:
             bits = _iq_frontend_bits(raw_d, channel_idx, fmt, n_chan, fs,
-                                     sps, keep)
+                                     sps, keep, self.soft)
             s.ring = _absorb_bits(s.ring, bits)
             s.end += keep
             return None
-        feed = self.feed
+        feed, soft, tol = self.feed, self.soft, self.tol
 
         def make_fn(ring0, rebase, end_rel, fed_rel, st, bs, nb, nfs):
             def dispatch(scr, g_rows):
                 return fused_chunk_iq(ring0, raw_d, channel_idx, end_rel,
                                       rebase, st, bs, nb, nfs, fed_rel, scr,
                                       fmt, n_chan, fs, sps, keep, steps,
-                                      feed, g_rows, lc_pad)
+                                      feed, g_rows, lc_pad, soft, tol)
             return dispatch
         return self._submit_common(keep, steps, make_fn)
 

@@ -35,6 +35,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "tt_viterbi_assembled": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                              _I, _P, _P, _I, _I, _P],
+    "tt_viterbi_segmented": [_P, _P, _I, _P, _I, _I, _I, _I, _P, _I, _I,
+                             _P],
     "tt_pfb_wola": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "tt_resample_rows": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _I,
                          _P],

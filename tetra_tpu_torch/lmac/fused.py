@@ -14,8 +14,12 @@ position -> keystream bit) and the kind's assembly map spreads the
 signs into mother order inside kernel K1 (ops.viterbi_assembled),
 which also runs the Viterbi and the five CRC16 checks.
 
-Only hard-decision input is ported; the soft Viterbi (kernel K4) is
-queued in ROADMAP.md.
+Soft input (soft_input=True, the demod="soft" path): descrambling is a
+sign flip of the soft values, the same assembly map spreads them into
+mother order times 127 (an index gather here, where tetra_tpu multiplies
+by its one-hot spread matrix outside any kernel: every row holds one
+127, so the numbers are the same), kernel K4 (ops.viterbi_segmented)
+runs the f32 Viterbi and ops.crc checks the five CRC16 segments.
 """
 from __future__ import annotations
 
@@ -29,9 +33,12 @@ from torch import nn
 from tetra_tpu import constants as C
 from tetra_tpu_torch.lmac.pipeline import BlockResult
 from tetra_tpu_torch.ops import interleave, rcpc, scramble
+from tetra_tpu_torch.ops.crc import crc16_check
 from tetra_tpu_torch.ops.viterbi_assembled import AssembledCode
+from tetra_tpu_torch.ops.viterbi_segmented import decode_segmented_k4
 
-__all__ = ["FusedTables", "assemble_parts", "decode_slots_fused",
+__all__ = ["FusedTables", "assemble_parts", "assemble_soft",
+           "decode_slots_fused",
            "BOUNDARIES", "CRC_SEGS", "N_SYM"]
 
 N_SYM = 288                   # unified trellis length (= SCH/F)
@@ -130,45 +137,76 @@ def fused_tables(device: torch.device) -> FusedTables:
     return FusedTables().to(device)
 
 
+def _keystream_plane(inits, k, tables: FusedTables):
+    """Per-slot keystream of kind k arranged by slot position: (plane
+    [N, 512] int8, ks_cell [N, 432])."""
+    N = k.shape[0]
+    ks_cell = scramble.keystream(inits, _KS_CELL)
+    ksv = torch.cat([ks_cell, tables.ks_fixed.expand(N, 120),
+                     torch.zeros((N, 1), dtype=torch.int8,
+                                 device=k.device)], dim=1)
+    plane = torch.zeros((N, _SLOT_W), dtype=torch.int8, device=k.device)
+    plane.scatter_(1, tables.sel_slot[k], ksv.gather(1, tables.sel_ks[k]))
+    return plane, ks_cell
+
+
 def assemble_parts(slots, inits, kinds, tables: FusedTables):
     """slots [N, 510] hard bits, inits [N] int64 scrambling codes, kinds
     [N] -> (x [N, 512] int8 descrambled signs of the slot's kind, tab
     [N] int32 kind map row, rm [N, 3] int8 restarts, ks_cell [N, 432]).
 
     Kinds outside 0..2 decode as kind 0, as in the JAX path."""
-    N = slots.shape[0]
     k = kinds.to(torch.int64).clamp(0, 2)
-    ks_cell = scramble.keystream(inits, _KS_CELL)
-    ksv = torch.cat([ks_cell, tables.ks_fixed.expand(N, 120),
-                     torch.zeros((N, 1), dtype=torch.int8,
-                                 device=slots.device)], dim=1)
-    plane = torch.zeros((N, _SLOT_W), dtype=torch.int8, device=slots.device)
-    plane.scatter_(1, tables.sel_slot[k], ksv.gather(1, tables.sel_ks[k]))
+    plane, ks_cell = _keystream_plane(inits, k, tables)
     src = F.pad(slots.to(torch.int8), (0, _SLOT_W - C.BITS_PER_TS))
     x = (1 - 2 * (src ^ plane)).to(torch.int8)
     return x, k.to(torch.int32), tables.rmask[k], ks_cell
+
+
+def assemble_soft(slots, inits, kinds, tables: FusedTables):
+    """slots [N, 510] float32 soft values (positive = bit 0) -> (soft
+    [N, 1152] float32 in mother order, 127 x the descrambled value or 0
+    at an erasure; rm [N, 3] int8 restarts; ks_cell [N, 432])."""
+    k = kinds.to(torch.int64).clamp(0, 2)
+    plane, ks_cell = _keystream_plane(inits, k, tables)
+    src = F.pad(slots.to(torch.float32), (0, _SLOT_W - C.BITS_PER_TS + 1))
+    flip = F.pad(1 - 2 * plane.to(torch.float32), (0, 1))
+    desc = src * flip                       # column 512 is the erasure 0
+    idx = tables.code.pidx.to(torch.int64)[k]
+    soft = desc.gather(1, torch.where(idx < 0, _SLOT_W, idx)) * 127.0
+    return soft, tables.rmask[k], ks_cell
 
 
 def decode_slots_fused(slots, inits, kinds, soft_input: bool = False) -> dict:
     """Mixed-kind batched lower MAC: slots [..., 510] hard bits +
     scrambling codes broadcastable to the slot batch (int64) + kinds
     (0 SYNC / 1 SCH/F / 2 NDB / -1 none) -> the tetra_tpu result dict
-    (sb1/sb2/schf/ndb1/ndb2/bbk BlockResults, kinds, crc_ok)."""
-    if soft_input:
-        raise NotImplementedError("soft-input decode (kernel K4) is not "
-                                  "ported")
+    (sb1/sb2/schf/ndb1/ndb2/bbk BlockResults, kinds, crc_ok).
+
+    soft_input=True takes float soft values (positive = bit 0) in place
+    of hard bits and decodes with kernel K4; the broadcast block, which
+    has no FEC, is hard-sliced (soft < 0)."""
     dev = slots.device
     tables = fused_tables(dev)
     batch = slots.shape[:-1]
     N = int(np.prod(batch)) if batch else 1
-    slots_f = slots.reshape(N, C.BITS_PER_TS).to(torch.int8)
     kinds_b = torch.as_tensor(kinds, device=dev).expand(batch)
+    kinds_f = kinds_b.reshape(N)
     inits_f = torch.as_tensor(inits, dtype=torch.int64,
                               device=dev).expand(batch).reshape(N)
-    x, tab, rm, ks_cell = assemble_parts(slots_f, inits_f,
-                                         kinds_b.reshape(N), tables)
-    bits, okf = tables.code(x, tab, rm)
-    oks = [okf[:, i] != 0 for i in range(len(CRC_SEGS))]
+    if soft_input:
+        soft_f = slots.reshape(N, C.BITS_PER_TS).to(torch.float32)
+        slots_f = (soft_f < 0).to(torch.int8)
+        soft, rm, ks_cell = assemble_soft(soft_f, inits_f, kinds_f, tables)
+        bits = decode_segmented_k4(soft, rm, N_SYM, BOUNDARIES)
+        oks = [crc16_check(bits[:, off:off + ln]) for off, ln in CRC_SEGS]
+    else:
+        slots_f = slots.reshape(N, C.BITS_PER_TS).to(torch.int8)
+        x, tab, rm, ks_cell = assemble_parts(slots_f, inits_f, kinds_f,
+                                             tables)
+        bits, okf = tables.code(x, tab, rm)
+        oks = [okf[:, i] != 0 for i in range(len(CRC_SEGS))]
+    is_sync = kinds_f.clamp(0, 2) == 0
 
     def block(t2, n1, ok):
         return BlockResult(t2[..., :n1].reshape(*batch, n1),
@@ -185,7 +223,7 @@ def decode_slots_fused(slots, inits, kinds, soft_input: bool = False) -> dict:
     # reference copy-through semantics (tetra_lower_mac.c:268-271)
     bbk_sync = slots_f[:, tables.bbk[0]]
     bbk_norm = slots_f[:, tables.bbk[1]]
-    bbk_t4 = torch.where((tab == 0)[:, None], bbk_sync, bbk_norm) \
+    bbk_t4 = torch.where(is_sync[:, None], bbk_sync, bbk_norm) \
         ^ ks_cell[:, :30]
     bbk = BlockResult(bbk_t4[:, :14].reshape(*batch, 14),
                       torch.ones(batch, dtype=torch.bool, device=dev),

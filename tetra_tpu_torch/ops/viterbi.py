@@ -5,12 +5,14 @@ Reference behaviour: src/lower_mac/viterbi.c + viterbi_cch.c (tables)
 with the ACS of libosmocore's osmo_conv_decode. Soft convention: positive
 = bit 0, negative = bit 1, 0 = erasure.
 
-This is the plain reference the CUDA kernel of
-ops.viterbi_assembled is held against: a Python loop over time,
-vectorised over the batch, with integer path metrics so that ties are
-exact. Tie rules are those of the JAX scan: a decision takes the upper
-predecessor only when it is strictly better (`c1 > c0`), and every
-argmax takes the lowest-index state.
+This is the plain reference the CUDA kernels of ops.viterbi_assembled
+(K1) and ops.viterbi_segmented (K4) are held against: a Python loop over
+time, vectorised over the batch. Integer soft input (K1's int8 signs)
+runs with int32 path metrics; float input (K4's soft amplitudes) runs
+with float32 metrics and -1e6 initial metrics, like the JAX scan
+(tetra_tpu.lmac.fused.decode_segmented). Tie rules are those of the JAX
+scan: a decision takes the upper predecessor only when it is strictly
+better (`c1 > c0`), and every argmax takes the lowest-index state.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from tetra_tpu.constants import CONV_GENERATORS_CCH
 __all__ = ["trellis_signs", "decode_segmented", "argmax_low"]
 
 _NEG = -(1 << 27)    # excludes invalid paths; metrics stay << 2^31
+_NEG_F32 = -1e6      # float metrics: tetra_tpu.lmac.fused._NEG
 
 # predecessor structure of the de Bruijn state graph:
 # state s = (d0..d3) with s' = ((s & 7) << 1) | b  (viterbi_cch.c:43-47)
@@ -62,9 +65,10 @@ def argmax_low(metric: torch.Tensor) -> torch.Tensor:
 def decode_segmented(soft: torch.Tensor, rmask: torch.Tensor, n_sym: int,
                      boundaries: tuple = (),
                      generators=CONV_GENERATORS_CCH) -> torch.Tensor:
-    """Segmented decode: soft [B, >= n_sym*N] integer-valued soft bits,
-    rmask [B, len(boundaries)] (nonzero = trellis restart at that
-    boundary) -> bits [B, n_sym] int8.
+    """Segmented decode: soft [B, >= n_sym*N] soft bits (integer dtype:
+    int32 metrics; float dtype: float32 metrics), rmask [B,
+    len(boundaries)] (nonzero = trellis restart at that boundary) ->
+    bits [B, n_sym] int8.
 
     At a restart step the traceback enters the lowest-index state that
     held the maximum metric just before the restart, and the metrics
@@ -75,15 +79,16 @@ def decode_segmented(soft: torch.Tensor, rmask: torch.Tensor, n_sym: int,
     n = len(gens)
     dev = soft.device
     B = soft.shape[0]
-    signs = torch.as_tensor(trellis_signs(gens), dtype=torch.int32,
-                            device=dev)
+    mdt = torch.float32 if soft.is_floating_point() else torch.int32
+    signs = torch.as_tensor(trellis_signs(gens), dtype=mdt, device=dev)
     p0 = torch.as_tensor(_P0, dtype=torch.int64, device=dev)
     p1 = torch.as_tensor(_P1, dtype=torch.int64, device=dev)
     bvec = torch.as_tensor(_BIT, dtype=torch.int64, device=dev)
     s0 = signs[p0, bvec]                       # [16 new states, N]
     s1 = signs[p1, bvec]
-    x = soft[:, :n_sym * n].reshape(B, n_sym, n).to(torch.int32)
-    init = torch.full((B, 16), _NEG, dtype=torch.int32, device=dev)
+    x = soft[:, :n_sym * n].reshape(B, n_sym, n).to(mdt)
+    neg = _NEG_F32 if mdt == torch.float32 else _NEG
+    init = torch.full((B, 16), neg, dtype=mdt, device=dev)
     init[:, 0] = 0
     restart = {b: (rmask[:, i] != 0) for i, b in enumerate(boundaries)}
     bstate = {}
@@ -94,8 +99,8 @@ def decode_segmented(soft: torch.Tensor, rmask: torch.Tensor, n_sym: int,
             bstate[t] = argmax_low(metric)
             metric = torch.where(restart[t][:, None], init, metric)
         xt = x[:, t, None, :]                  # [B, 1, N]
-        c0 = metric[:, p0] + (xt * s0).sum(-1, dtype=torch.int32)
-        c1 = metric[:, p1] + (xt * s1).sum(-1, dtype=torch.int32)
+        c0 = metric[:, p0] + (xt * s0).sum(-1, dtype=mdt)
+        c1 = metric[:, p1] + (xt * s1).sum(-1, dtype=mdt)
         dec = c1 > c0
         metric = torch.where(dec, c1, c0)
         decs.append(dec)

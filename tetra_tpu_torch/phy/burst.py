@@ -19,15 +19,17 @@ __all__ = ["train_seq_match", "split_norm_burst", "LOCKED_COLS"]
 LOCKED_COLS = (0, 1, 2)
 
 
-def train_seq_match(bits: torch.Tensor) -> torch.Tensor:
-    """Exact-match map of the SYNC, NORM_1 and NORM_2 training sequences
-    over ubits [B, L]: bool [B, L, 3], True where the whole sequence
-    starts at that offset. Positions closer than a sequence length to
-    the end never match (the reference's remain_len check,
-    tetra_burst.c:305-312).
+def train_seq_match(bits: torch.Tensor, tol: int = 0) -> torch.Tensor:
+    """Match map of the SYNC, NORM_1 and NORM_2 training sequences over
+    ubits [B, L]: bool [B, L, 3], True where the sequence starts at that
+    offset with at most `tol` bit errors. Positions closer than a
+    sequence length to the end never match (the reference's remain_len
+    check, tetra_burst.c:305-312).
 
     One correlation of ±1-mapped bits with ±1 templates: an exact match
-    is a correlation equal to the template length."""
+    is a correlation equal to the template length n, and each wrong bit
+    lowers it by 2, so a match is `corr >= n - 2*tol`. tol=0 is the
+    reference's exact matcher; the soft pipeline uses tol=2."""
     seqs = [_SEQS[c] for c in LOCKED_COLS]
     nmax = max(len(s) for s in seqs)
     w = np.zeros((len(seqs), 1, nmax), np.float32)
@@ -38,7 +40,7 @@ def train_seq_match(bits: torch.Tensor) -> torch.Tensor:
     corr = F.conv1d(F.pad(x[:, None, :], (0, nmax - 1)),
                     torch.as_tensor(w, device=bits.device))   # [B, 3, L]
     pos = torch.arange(L, device=bits.device)
-    outs = [(corr[:, i] >= float(len(s))) & (pos <= L - len(s))
+    outs = [(corr[:, i] >= float(len(s) - 2 * tol)) & (pos <= L - len(s))
             for i, s in enumerate(seqs)]
     return torch.stack(outs, dim=-1)
 

@@ -1,11 +1,12 @@
-"""pi/4-DQPSK hard-decision demod (port of the streaming parts of
-tetra_tpu.phy.dqpsk) plus the host modulator used to build fixtures.
+"""pi/4-DQPSK hard- and soft-decision demod (port of the streaming parts
+of tetra_tpu.phy.dqpsk) plus the host modulator used to build fixtures.
 
 Reference behaviour: src/demod/cqpsk.py (RRC matched filter, differential
 phasor) and src/float_to_bits.c (sign thresholds). Feed-forward design:
 an os-x bank of fractionally shifted RRC matched filters, the
 differential phasor over one symbol, one timing phase per carrier
-picked by the |sin 2θ| metric over the whole chunk, and sign decisions.
+picked by the |sin 2θ| metric over the whole chunk, and sign decisions
+(or, soft, the phasor components scaled to int8 reliabilities).
 Plain PyTorch: no TPU kernel sits on this stage of the path.
 """
 from __future__ import annotations
@@ -17,7 +18,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["rrc_taps", "_band_matrix", "modulate", "bits_to_phase",
-           "_fir_real", "_stream_phasors", "demodulate_hard_ri"]
+           "_fir_real", "_stream_phasors", "demodulate_hard_ri",
+           "demodulate_soft_ri"]
 
 # dibit -> phase step in units of pi/4 (reference float_to_bits.c:50-72)
 _BITS2STEP = {(0, 0): 1, (0, 1): 3, (1, 0): -1, (1, 1): -3}
@@ -135,3 +137,21 @@ def demodulate_hard_ri(re, im, sps: int = 2, os: int = 1) -> torch.Tensor:
     b0 = (sel_i <= 0).to(torch.int8)
     b1 = (sel_r < 0).to(torch.int8)
     return torch.stack([b0, b1], dim=-1).reshape(re.shape[0], -1)
+
+
+def demodulate_soft_ri(re, im, sps: int = 2, os: int = 1) -> torch.Tensor:
+    """Soft decisions on the same selected phasors as demodulate_hard_ri:
+    re, im [C, T] float32 -> int8 reliabilities [C, 2*(T//sps)]
+    (positive = bit 0; hard decision = soft < 0). Each component is
+    divided by the carrier's mean phasor magnitude over this call,
+    clipped at ±4 and quantised as round(x * 31) (±124 full scale).
+
+    The normalisation is per call (per feed window), as in tetra_tpu,
+    so a carrier's scale moves with each chunk's content."""
+    sel_r, sel_i = _stream_phasors(re, im, sps, os)
+    nrm = torch.sqrt(sel_r * sel_r + sel_i * sel_i).mean(
+        dim=-1, keepdim=True) + 1e-9
+    s0 = torch.clamp(sel_i / nrm, -4.0, 4.0)
+    s1 = torch.clamp(sel_r / nrm, -4.0, 4.0)
+    q = torch.round(torch.stack([s0, s1], dim=-1) * 31.0).to(torch.int8)
+    return q.reshape(re.shape[0], -1)

@@ -34,9 +34,15 @@ OUT_KEYS = ("burst", "emit", "col", "slot", "found", "found_rel",
 
 
 def sync_scan(bits, state0, buf_start0, nbuf0, nfs0, slot0, fed0: int,
-              steps: int, feed: int = FEED_BITS):
+              steps: int, feed: int = FEED_BITS, tol: int = 0):
     """Run `steps` feed quanta of the reference state machine over bits
     [B, L] (chunk-relative int32 positions).
+
+    tol: training-sequence bit-error tolerance (burst.train_seq_match).
+    0 replays the reference's exact matcher. With tol > 0 a locked slot
+    first checks the expected offsets (SYNC at 214, NORM at 244) and
+    falls back to the first-match scan only when neither holds, and the
+    tolerant map also feeds acquisition (both as tetra_tpu does).
 
     Returns ((state, buf_start, nbuf, nfs, slot_index, fed), out) with
     out[key] a [steps, B] tensor for key in OUT_KEYS:
@@ -53,12 +59,15 @@ def sync_scan(bits, state0, buf_start0, nbuf0, nfs0, slot0, fed0: int,
     B, L = bits.shape
     i32 = torch.int32
     idx = torch.arange(L, dtype=i32, device=dev)
-    match = train_seq_match(bits)                       # [B, L, 3]
+    match = train_seq_match(bits, tol)                  # [B, L, 3]
     prev = torch.cat([torch.zeros((B, 1), dtype=bits.dtype, device=dev),
                       bits[:, :-1]], dim=1)
     false_col = torch.zeros((B, 1), dtype=torch.bool, device=dev)
     sentinel = torch.full((B, 1), L, dtype=i32, device=dev)
     nms, viz20s = [], []
+    # tolerant mode: match columns with a False sentinel (lookups at L)
+    mcols = [torch.cat([match[..., ci], false_col], dim=1)
+             for ci in range(len(LOCKED_COLS))] if tol else None
     for ci in range(len(LOCKED_COLS)):
         v = torch.where(match[..., ci], idx, L)
         nm = torch.cummin(v.flip(1), dim=1).values.flip(1)
@@ -125,7 +134,24 @@ def sync_scan(bits, state0, buf_start0, nbuf0, nfs0, slot0, fed0: int,
                                                  _BIG * 4))
         has = key < _BIG * 4
         col = torch.where(has, key & 3, -1)
-        rel = (key >> 2) - slot
+        qw = key >> 2
+        if tol:
+            # near-matches multiply under tolerance, and an earlier
+            # spurious hit would shadow the true sequence: the expected
+            # offsets win, the first-match scan is the fallback
+            def at(ci, p):
+                return gather(mcols[ci], p) \
+                    & (p + _SEQ_LEN[LOCKED_COLS[ci]] <= blim)
+            e0 = at(0, slot + C.SYNC_TRAIN_OFFSET)
+            e1 = at(1, slot + C.NORM_TRAIN_OFFSET)
+            e2 = at(2, slot + C.NORM_TRAIN_OFFSET)
+            eh = e0 | e1 | e2
+            ecol = torch.where(e0, 0, torch.where(e1, 1, 2)).to(i32)
+            col = torch.where(eh, ecol, col)
+            qw = torch.where(eh, torch.where(e0, slot + C.SYNC_TRAIN_OFFSET,
+                                             slot + C.NORM_TRAIN_OFFSET), qw)
+            has = has | eh
+        rel = qw - slot
 
         is_sync = lk & (col == 0)
         sync_ok = is_sync & (rel == C.SYNC_TRAIN_OFFSET)

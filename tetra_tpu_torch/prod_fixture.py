@@ -8,6 +8,12 @@ recorded decode counts for the 1024-carrier production stage. From them
 this module rebuilds the bench's companded wideband capture with numpy
 copies of the fixture chain: safe_rolls -> dqpsk.modulate ->
 channelizer.synthesize_wideband_fft -> stream.quantize_iq4c.
+
+`data/snr8_clean.npz` holds the padded clean 16-frame SYNC/SCH_F row of
+tools/bench_mc_e2e.run_snr8 (bit-packed), its n_tail and the JAX
+package's recorded counts for that stage; `snr8_capture` rebuilds the
+stage's noisy capture from it: tile, safe_rolls, modulate, synthesize,
+AWGN at the per-channel SNR from default_rng(99), quantize_iq4c.
 """
 from __future__ import annotations
 
@@ -24,11 +30,12 @@ from tetra_tpu_torch.io.stream import quantize_iq4c
 from tetra_tpu_torch.phy.channelizer import synthesize_wideband_fft
 from tetra_tpu_torch.phy.dqpsk import modulate
 
-__all__ = ["DATA_PATH", "KEYSTORE", "BITRATE", "load", "safe_rolls",
-           "mixed_bits", "wideband_capture", "keystore_file",
-           "run_receiver"]
+__all__ = ["DATA_PATH", "SNR8_PATH", "KEYSTORE", "BITRATE", "load",
+           "load_snr8", "safe_rolls", "mixed_bits", "wideband_capture",
+           "snr8_bits", "snr8_capture", "keystore_file", "run_receiver"]
 
 DATA_PATH = pathlib.Path(__file__).parent / "data" / "prod_mixed.npz"
+SNR8_PATH = pathlib.Path(__file__).parent / "data" / "snr8_clean.npz"
 HEAD_NOISE = 731
 BITRATE = 36_000.0     # bits/s per carrier: the real-time reference
 
@@ -49,6 +56,16 @@ def load(path=DATA_PATH) -> dict:
     L = int(d["length"])
     d["plain"] = np.unpackbits(d["plain_packed"])[:L]
     d["enc"] = np.unpackbits(d["enc_packed"])[:L]
+    return d
+
+
+def load_snr8(path=SNR8_PATH) -> dict:
+    """The snr8 fixture: 'row' [L] uint8 (the padded clean row),
+    'n_tail', 'snr_db' and the JAX record 'snr8_crc_ok',
+    'snr8_crc_err', 'clean_crc_ok' (1024 carriers)."""
+    with np.load(path) as z:
+        d = {k: z[k] for k in z.files}
+    d["row"] = np.unpackbits(d["row_packed"])[:int(d["length"])]
     return d
 
 
@@ -80,13 +97,43 @@ def mixed_bits(n_car: int, enc_frac: float = 0.1, fixture: dict | None = None):
     return bits, n_enc
 
 
-def wideband_capture(bits: np.ndarray) -> np.ndarray:
+def wideband_capture(bits: np.ndarray,
+                     snr_db: float | None = None) -> np.ndarray:
     """Per-carrier bits [C, L] -> the companded 4+4-bit wideband capture
-    (one byte per complex sample) with carrier c on PFB channel c of C."""
+    (one byte per complex sample) with carrier c on PFB channel c of C.
+    snr_db adds AWGN at that per-channel SNR before quantisation, drawn
+    from default_rng(99) in the order of bench_mc_e2e._wideband_pass
+    (real part, then imaginary part)."""
     n_car = bits.shape[0]
     base = modulate(bits, sps=2)
     wide = synthesize_wideband_fft(base, np.arange(n_car), n_car)
+    if snr_db is not None:
+        rng = np.random.default_rng(99)
+        sig = np.mean(np.abs(wide) ** 2) / n_car       # per-carrier power
+        npow = sig * n_car / (10 ** (snr_db / 10))     # full-band noise
+        wide = (wide + rng.normal(0, np.sqrt(npow / 2), wide.shape)
+                + 1j * rng.normal(0, np.sqrt(npow / 2), wide.shape)
+                ).astype(np.complex64)
     return quantize_iq4c(wide.real, wide.imag)
+
+
+def snr8_bits(n_car: int, fixture: dict | None = None) -> np.ndarray:
+    """[n_car, L] clean bits of the snr8 stage: the row tiled and each
+    carrier circularly rolled into the screened noise window."""
+    fx = load_snr8() if fixture is None else fixture
+    row = fx["row"]
+    bits = np.tile(row, (n_car, 1))
+    rolls = safe_rolls(n_car, len(row), int(fx["n_tail"]))
+    for c in range(n_car):
+        bits[c] = np.roll(bits[c], rolls[c])
+    return bits
+
+
+def snr8_capture(n_car: int, fixture: dict | None = None) -> np.ndarray:
+    """The snr8 stage's noisy companded capture at n_car carriers
+    (bench_mc_e2e.run_snr8 at 1024)."""
+    fx = load_snr8() if fixture is None else fixture
+    return wideband_capture(snr8_bits(n_car, fx), float(fx["snr_db"]))
 
 
 @contextlib.contextmanager
@@ -99,11 +146,11 @@ def keystore_file():
         yield path
 
 
-def run_receiver(packed: np.ndarray, n_car: int, ks_path: str, device,
-                 n_chunks: int = 4):
+def run_receiver(packed: np.ndarray, n_car: int, ks_path: str | None,
+                 device, n_chunks: int = 4, demod: str = "hard"):
     """One pass of the production path: a fresh MultiCarrierReceiver
-    (carrier c on PFB channel c of n_car, native plane, keystore) fed
-    `packed` in n_chunks process_iq4c calls. Returns (receiver, wall
+    (carrier c on PFB channel c of n_car, native plane, keystore, demod)
+    fed `packed` in n_chunks process_iq4c calls. Returns (receiver, wall
     seconds; on a card the clock stops after a synchronize)."""
     from tetra_tpu_torch.rx_multi import MultiCarrierReceiver
     dev = torch.device(device)
@@ -113,7 +160,7 @@ def run_receiver(packed: np.ndarray, n_car: int, ks_path: str, device,
     t0 = time.perf_counter()
     mrx = MultiCarrierReceiver(
         [], fs=25_000.0 * n_car, pfb_channels=np.arange(n_car),
-        n_chan=n_car, keystore_path=ks_path, device=dev)
+        n_chan=n_car, keystore_path=ks_path, demod=demod, device=dev)
     for k in range(n_chunks):
         mrx.process_iq4c(packed[cuts[k]:cuts[k + 1]],
                          final=k == n_chunks - 1)

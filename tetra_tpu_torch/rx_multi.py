@@ -1,16 +1,21 @@
 """Multi-carrier receiver, production path (port of the PFB + native
 control-plane branch of tetra_tpu.rx_multi).
 
-Wideband companded IQ in (`process_iq4c`), per-carrier decode stats and
-native control-plane events out. Each chunk runs as one fused chunk
-program on the device (fastpath.submit_iq) and one C++ walk of the
-upper MAC / LLC / MLE / crypto (tetra_tpu.umac.native_exec). Chunks are
-pipelined: up to `pipeline_depth` dispatched chunks wait before the
-oldest is fetched and walked; a final=True call drains the queue.
+Wideband companded IQ (`process_iq4c`) or complex samples (`process_iq`)
+in, per-carrier decode stats and native control-plane events out. Each
+chunk runs as one fused chunk program on the device (fastpath.submit_iq)
+and one C++ walk of the upper MAC / LLC / MLE / crypto
+(tetra_tpu.umac.native_exec). Chunks are pipelined: up to
+`pipeline_depth` dispatched chunks wait before the oldest is fetched
+and walked; a final=True call drains the queue.
+
+demod="soft" is the degraded-signal mode: int8 soft demod, a sync scan
+that accepts 2 training-sequence bit errors, and the soft Viterbi
+(kernel K4) over the same kind-compacted FEC.
 
 Not ported (NotImplementedError): the mixer-bank channelizer (no
-pfb_channels), the Python control plane, the soft demod, mesh
-sharding, GSMTAP export, traffic dumps and voice decode.
+pfb_channels), the Python control plane, mesh sharding, GSMTAP export,
+TL-SDU sinks, traffic dumps and voice decode.
 """
 from __future__ import annotations
 
@@ -53,8 +58,8 @@ class MultiCarrierReceiver:
         if control_plane != "native":
             raise NotImplementedError("only the native control plane is "
                                       "ported")
-        if demod != "hard":
-            raise NotImplementedError("soft demod (kernel K4) is not ported")
+        if demod not in ("hard", "soft"):
+            raise ValueError(f"demod must be 'hard' or 'soft', got {demod!r}")
         if mesh is not None:
             raise NotImplementedError("mesh sharding is not ported")
         if gsmtap_host or dumpdir or decode_voice or tl_sdu_sink is not None:
@@ -75,7 +80,8 @@ class MultiCarrierReceiver:
             from tetra_tpu.crypto.crypto import load_keystore
             self.native_cp.set_keys(load_keystore(keystore_path))
         self.native_events = []
-        self._fast = FastChunkPipeline(n_carriers, self.device)
+        self._fast = FastChunkPipeline(n_carriers, self.device,
+                                       soft=demod == "soft")
         self._pending = []
         # chunks kept in flight while streaming (final=False)
         self.pipeline_depth = 2
@@ -86,6 +92,12 @@ class MultiCarrierReceiver:
         self._wb_rem = None
         self._wb_hist = None
         self._wb_g = None
+
+    def process_iq(self, wideband_iq, final: bool = True) -> list[RxStats]:
+        """One chunk of wideband complex samples through the chain (sent
+        to the device as interleaved float32 I/Q)."""
+        iq = np.ascontiguousarray(np.asarray(wideband_iq, np.complex64))
+        return self._wideband_stream(iq.view(np.float32), 2, "f32i", final)
 
     def process_iq4c(self, packed_u8, final: bool = True) -> list[RxStats]:
         """One chunk of companded 4+4-bit wideband IQ (one byte per

@@ -1,5 +1,6 @@
-"""Write tetra_tpu_torch/data/prod_mixed.npz, the production-capture
-fixture of the PyTorch port.
+"""Write the capture fixtures of the PyTorch port:
+tetra_tpu_torch/data/prod_mixed.npz (production capture) and
+tetra_tpu_torch/data/snr8_clean.npz (the noisy soft-mode capture).
 
 The file holds the two padded 16-frame rows of bench_mc_e2e.mixed_batch
 (plain and TEA1-encrypted, before the per-carrier roll, bit-packed), the
@@ -13,9 +14,16 @@ computed here in batches of 128 carriers (carriers are independent
 receivers on that path); their totals must equal the recorded bits-path
 counts.
 
-Runs on the CPU with jax (the rows come from tetra_tpu's TX chain):
+snr8_clean.npz holds the padded clean 16-frame SYNC/SCH_F row of
+bench_mc_e2e.run_snr8 (bit-packed), its n_tail, the SNR, and the JAX
+package's record of that stage at 1024 carriers (BENCH_r05.json:
+mc_e2e_snr8_crc_ok / _crc_err, and the clean capture's
+mc_e2e_wideband_crc_ok).
 
-    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py
+Runs on the CPU with jax (the rows come from tetra_tpu's TX chain);
+the argument picks one file (default: both):
+
+    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [prod|snr8]
 """
 import os
 import pathlib
@@ -94,6 +102,30 @@ def bits_path_stats(bits, batch: int = 128):
     return stats, tot
 
 
+SNR8 = {"snr_db": 8.0, "snr8_crc_ok": 74_343, "snr8_crc_err": 410,
+        "clean_crc_ok": 81_920}
+
+
+def snr8_row(seed: int = 0):
+    """The padded clean row and n_tail, as bench_mc_e2e.run_snr8 builds
+    them before the tile and the rolls."""
+    rng = np.random.default_rng(seed)
+    row = B.make_stream(rng, N_FRAMES)
+    n_tail = B.common_len(N_FRAMES) - len(row)
+    row = B.circular_safe_pad(row, rng, n_tail)
+    return row.astype(np.uint8), n_tail
+
+
+def main_snr8(out=ROOT / "tetra_tpu_torch" / "data" / "snr8_clean.npz"):
+    row, n_tail = snr8_row()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(out, row_packed=np.packbits(row),
+                        length=np.int64(len(row)), n_tail=np.int64(n_tail),
+                        n_frames=np.int64(N_FRAMES),
+                        **{k: np.asarray(v) for k, v in SNR8.items()})
+    print(f"wrote {out} ({out.stat().st_size} bytes)")
+
+
 def main(out=ROOT / "tetra_tpu_torch" / "data" / "prod_mixed.npz"):
     plain, enc, n_tail = rows()
     # the stored rows must rebuild mixed_batch exactly
@@ -119,4 +151,10 @@ def main(out=ROOT / "tetra_tpu_torch" / "data" / "prod_mixed.npz"):
 
 
 if __name__ == "__main__":
-    main()
+    which = sys.argv[1:] or ["prod", "snr8"]
+    if not set(which) <= {"prod", "snr8"}:
+        sys.exit(f"usage: {sys.argv[0]} [prod|snr8]")
+    if "prod" in which:
+        main()
+    if "snr8" in which:
+        main_snr8()

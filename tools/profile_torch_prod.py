@@ -1,7 +1,8 @@
 """Where the time goes in the PyTorch port's production path, on a card.
 
 Runs the 1024-carrier production capture (tetra_tpu_torch.prod_fixture,
-4 chunks) through tetra_tpu_torch's MultiCarrierReceiver three times:
+4 chunks) through tetra_tpu_torch's MultiCarrierReceiver three times
+(with --soft: the 8 dB snr8 capture through demod="soft"):
   1. warm-up;
   2. layer breakdown: each layer is wrapped with a synchronize before
      and after, so its host-clock time includes its device work (this
@@ -11,7 +12,7 @@ Runs the 1024-carrier production capture (tetra_tpu_torch.prod_fixture,
      pass's wall time.
 Prints one JSON line per result.
 
-    python3 tools/profile_torch_prod.py [n_carriers]
+    python3 tools/profile_torch_prod.py [--soft] [n_carriers]
 """
 import collections
 import json
@@ -31,9 +32,9 @@ from tetra_tpu_torch.lmac import fused, pipeline
 N_CHUNKS = 4
 
 
-def run(packed, n_car, ks_path):
+def run(packed, n_car, ks_path, demod):
     return prod_fixture.run_receiver(packed, n_car, ks_path, "cuda",
-                                     N_CHUNKS)[1]
+                                     N_CHUNKS, demod)[1]
 
 
 def timed(acc, name, fn):
@@ -48,23 +49,34 @@ def timed(acc, name, fn):
 
 
 def main():
-    n_car = int(sys.argv[1]) if len(sys.argv) > 1 else 1024
+    args = sys.argv[1:]
+    demod = "soft" if "--soft" in args else "hard"
+    args = [a for a in args if a != "--soft"]
+    n_car = int(args[0]) if args else 1024
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    bits, _ = prod_fixture.mixed_bits(n_car, 0.1)
-    packed = prod_fixture.wideband_capture(bits)
-    stream_s = bits.shape[1] / prod_fixture.BITRATE
-    with prod_fixture.keystore_file() as ks:
-        warm = run(packed, n_car, ks)
-        plain_wall = run(packed, n_car, ks)
+    if demod == "soft":
+        fx = prod_fixture.load_snr8()
+        packed = prod_fixture.snr8_capture(n_car, fx)
+        stream_s = len(fx["row"]) / prod_fixture.BITRATE
+    else:
+        bits, _ = prod_fixture.mixed_bits(n_car, 0.1)
+        packed = prod_fixture.wideband_capture(bits)
+        stream_s = bits.shape[1] / prod_fixture.BITRATE
+    with prod_fixture.keystore_file() as ks_file:
+        ks = ks_file if demod == "hard" else None    # snr8 is unencrypted
+        warm = run(packed, n_car, ks, demod)
+        plain_wall = run(packed, n_car, ks, demod)
 
         acc = collections.defaultdict(float)
         patches = [
             (fastpath, "_iq_frontend", "front end (dequant+K2+K3+demod)"),
             (fastpath, "sync_scan", "sync_scan"),
             (pipeline, "decode_block", "SB1 pre-decode (K1 n80)"),
-            (fused, "decode_slots_fused", "fused FEC (assembly+K1 n288)"),
+            (fused, "decode_slots_fused",
+             "fused FEC (assembly+K1 n288)" if demod == "hard"
+             else "soft FEC (soft assembly+K4+CRC)"),
             (fastpath.FastChunkPipeline, "_decode_segments",
              "host bundle parse"),
             (NativeControlPlane, "walk2", "host native walk"),
@@ -73,14 +85,14 @@ def main():
         for m, a, name in patches:
             setattr(m, a, timed(acc, name, getattr(m, a)))
         try:
-            inst_wall = run(packed, n_car, ks)
+            inst_wall = run(packed, n_car, ks, demod)
         finally:
             for m, a, fn in saved:
                 setattr(m, a, fn)
         layers = dict(acc)
         layers["rest (compaction, fill, packing, transfers, Python)"] = \
             inst_wall - sum(acc.values())
-        print(json.dumps({"card": card, "carriers": n_car,
+        print(json.dumps({"card": card, "carriers": n_car, "demod": demod,
                           "warm_s": warm, "wall_s": plain_wall,
                           "realtime_carriers": n_car * stream_s / plain_wall,
                           "instrumented_wall_s": inst_wall,
@@ -89,7 +101,7 @@ def main():
         from torch.profiler import profile, ProfilerActivity
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            prof_wall = run(packed, n_car, ks)
+            prof_wall = run(packed, n_car, ks, demod)
     from torch.autograd import DeviceType
     rows = []
     busy_us = 0.0
