@@ -9,8 +9,8 @@ Phases (one JSON line each):
   1. device   nvidia-smi name and power limit; nvcc build of csrc/*.cu.
   2. kernels  each hand-written kernel against its plain PyTorch
               version on the card, at the main path's shapes and at the
-              CPU-test shapes: K1 (assembled Viterbi + CRC, n_sym 288
-              and 80) bit-identical, K2 (PFB WOLA) and K3 (resampler)
+              CPU-test shapes: K1 (assembled Viterbi + CRC, n_sym 288,
+              80 and 144) bit-identical, K2 (PFB WOLA) and K3 (resampler)
               within max|d| <= 1e-4 * max|plain|, K4 (f32 segmented
               Viterbi, n_sym 288 at ~21.5k rows and 80) bit-identical;
               times of both.
@@ -30,21 +30,46 @@ Phases (one JSON line each):
               once warm and once timed; crc_ok >= 0.90 x 81,920, crc_err
               <= 2 x the JAX record, and K1..K4 launched by the timed
               run.
+  7. kernels  K5 (fused hard demod) against its plain version at the
+              steady chain's shape [4096, 32,768] (half the carriers
+              with AWGN at 8 dB) and at the CPU tests' ragged [7, 602]:
+              decisions identical on clean carriers, <= 1e-3 differing
+              on noisy ones, the same timing phase on every carrier;
+              times of both. K1 at the steady chain's shape: every K1
+              call locked_step_ri(fast="pallas") makes on that noisy
+              capture under both decoder sets (n288, n80, n144; 262,144
+              rows each) bit-identical to its plain version. The K7
+              stage bisect (tools/profile_torch_demod.py), its bits
+              identical to the plain version's.
+  8. steady_small  8 carriers x 64 slots of the steady fixture (4 with
+              AWGN at 8 dB) through locked_step_ri on the card and on the
+              CPU, fast="pallas" under both decoder sets and fast="soft":
+              every output identical.
+  9. steady   4096 carriers x 64 slots (bench stage 3's shape), clean,
+              through locked_step_ri(fast="pallas") with
+              decoders=("fused",) and the default three, once warm and
+              once timed each: every kind, crc_ok and payload as the
+              fixture says, K5 and K1 launched by the timed pass.
 Then the kernel summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits nonzero without that line when
 there is no card, the build fails, or any check fails.
 """
 import json
+import pathlib
 import subprocess
 import sys
 import time
 import traceback
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tools"))
 
 TOL = 1e-4          # K2/K3: max |kernel - plain| <= TOL * max |plain|
 N_CAR = 1024
 N_CHUNKS = 4
 K4_ROWS = 21_504    # rows per chunk of the snr8 path's soft FEC
 CLEAN_CRC_OK = 81_920
+STEADY_CAR = 4096   # bench stage 3: 4096 carriers x 64 slots
+ALL3 = ("sync", "schf", "ndb")
 
 
 def emit(obj):
@@ -59,21 +84,6 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 10) -> float:
-    """Mean device time of fn() in ms over `reps` runs, after a warm-up."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
 def rel_err(got, want) -> tuple[float, float]:
     d = max(float((g - w).abs().max()) for g, w in zip(got, want))
     scale = max(float(w.abs().max()) for w in want)
@@ -83,11 +93,13 @@ def rel_err(got, want) -> tuple[float, float]:
 def _wrappers() -> dict:
     from tetra_tpu_torch.ops.viterbi_assembled import decode_assembled
     from tetra_tpu_torch.ops.viterbi_segmented import decode_segmented_k4
+    from tetra_tpu_torch.phy.demod_fused import demod_fused
     from tetra_tpu_torch.phy.pfb import pfb_channelize_rows, resample_rows
     return {"viterbi_assembled": decode_assembled,
             "pfb_wola": pfb_channelize_rows,
             "resample_rows": resample_rows,
-            "viterbi_segmented": decode_segmented_k4}
+            "viterbi_segmented": decode_segmented_k4,
+            "demod_fused": demod_fused}
 
 
 def reset_launches():
@@ -130,16 +142,17 @@ def slot_batch(n_rows: int, dev, seed: int = 1):
 
 
 def check_k1(dev, n_rows: int) -> dict:
-    """K1 vs its plain version at n_sym 288 (fused decode) and 80 (SB1)
-    on random signs and on corrupted real slots."""
+    """K1 vs its plain version at n_sym 288 (fused decode), 80 (SB1) and
+    144 (SB2 and NDB) on random signs and on corrupted real slots."""
     import torch
+    from profile_torch_demod import cuda_ms
     from tetra_tpu import constants as C
     from tetra_tpu_torch.lmac.fused import assemble_parts, fused_tables
-    from tetra_tpu_torch.lmac.pipeline import _sb1_decoder
+    from tetra_tpu_torch.lmac.pipeline import _block_decoder
+    from tetra_tpu_torch.ops.scramble import keystream_np
     from tetra_tpu_torch.ops.viterbi_assembled import decode_assembled_plain
     init = ((42 << 6 | 262 << 20 | 1) << 2) | C.SCRAMB_INIT
     tables = fused_tables(dev)
-    sb1 = _sb1_decoder(dev)
     g = torch.Generator(device="cpu").manual_seed(7)
     slots, kinds = slot_batch(n_rows, dev)
     inits = torch.full((n_rows,), init, dtype=torch.int64, device=dev)
@@ -151,12 +164,20 @@ def check_k1(dev, n_rows: int) -> dict:
     worst = 0
     max_abs = 0
     n_ok = 0
+    # per-kind blocks: (K1 shape, block kind, slot offset, scrambling code)
+    blocks = {"n80": ("SB1", C.SB_BLK1_OFFSET, C.SCRAMB_INIT),
+              "n144": ("NDB", C.NDB_BLK1_OFFSET, init)}
     for name, code, cases in (
             ("n288", tables.code, [(x, tab, rm), (xr, tabr, rmr)]),
-            ("n80", sb1.code, None)):
+            ("n80", _block_decoder("SB1", dev).code, None),
+            ("n144", _block_decoder("NDB", dev).code, None)):
         if cases is None:
-            t5 = slots[:, C.SB_BLK1_OFFSET:C.SB_BLK1_OFFSET + 120]
-            sgn = (1 - 2 * (t5 ^ sb1.ks)).to(torch.int8)
+            kind, off, code_init = blocks[name]
+            n345 = C.BLOCK_PARAMS[kind][0]
+            ks = torch.as_tensor(keystream_np(code_init, n345)
+                                 .astype("int8"), device=dev)
+            t5 = slots[:, off:off + n345]
+            sgn = (1 - 2 * (t5 ^ ks)).to(torch.int8).contiguous()
             z = torch.zeros(n_rows, dtype=torch.int32, device=dev)
             r0 = torch.zeros((n_rows, 0), dtype=torch.int8, device=dev)
             sgr = torch.randint(-1, 2, sgn.shape, generator=g) \
@@ -189,6 +210,7 @@ def check_k1(dev, n_rows: int) -> dict:
 def check_pfb(dev, n_chan: int, T: int, seed: int) -> dict:
     """K2 and K3 vs their plain versions on Gaussian wideband noise."""
     import torch
+    from profile_torch_demod import cuda_ms
     from tetra_tpu_torch.phy.pfb import (PfbFrontEnd, pfb_channelize_rows,
                                          pfb_channelize_rows_plain,
                                          resample_rows, resample_rows_plain)
@@ -254,6 +276,7 @@ def check_k4(dev, n_rows: int) -> dict:
     without restarts at the CPU test's shape [32, 320]. Bits must be
     identical."""
     import torch
+    from profile_torch_demod import cuda_ms
     from tetra_tpu_torch.lmac.fused import BOUNDARIES, N_SYM
     from tetra_tpu_torch.ops.viterbi import decode_segmented
     from tetra_tpu_torch.ops.viterbi_segmented import decode_segmented_k4
@@ -380,10 +403,247 @@ def run_snr8(dev, card: str) -> dict:
            "card": card, "crc_ok": crc_ok, "crc_err": crc_err,
            "crc_ok_frac": crc_ok / CLEAN_CRC_OK, "jax_record": jax_rec,
            "launches": n_launch}
-    if min(n_launch.values()) <= 0:
+    if min(n_launch[k] for k in ("viterbi_assembled", "pfb_wola",
+                                 "resample_rows", "viterbi_segmented")) <= 0:
         raise AssertionError(f"a kernel was not launched: {n_launch}")
     if crc_ok < 0.90 * CLEAN_CRC_OK or crc_err > 2 * jax_rec["crc_err"]:
         raise AssertionError(f"snr8 decode outside its limits: {res}")
+    return res
+
+
+def k5_case(re, im, noisy) -> dict:
+    """K5 (kernel + phase pick) vs its plain version on planes re, im
+    [C, T] on the card; noisy [C] bool marks carriers with AWGN."""
+    import torch
+    from tetra_tpu_torch.phy import demod_fused, dqpsk
+    sel, best, part = demod_fused._demod_parts(re, im)
+    got = demod_fused._unpack_bits(sel)
+    want = dqpsk.demodulate_hard_ri(re, im)
+    _, _, score = dqpsk._stream_score(re, im, 2, 1)
+    diff = got != want
+    clean = ~noisy
+    res = {"carriers": int(re.shape[0]), "samples": int(re.shape[1]),
+           "noisy_carriers": int(noisy.sum()),
+           "mismatches_clean": int(diff[clean].sum()),
+           "mismatch_frac_noisy": (float(diff[noisy].float().mean())
+                                   if bool(noisy.any()) else 0.0),
+           "phase_picks_differ": int(
+               (best != torch.argmax(score, dim=-1)).sum()),
+           "metric_max_abs_err": float(
+               (part.sum(1) / (re.shape[1] // 2) - score).abs().max()),
+           "max_abs_err": int((got - want).abs().max())}
+    if res["mismatches_clean"] or res["mismatch_frac_noisy"] > 1e-3 \
+            or res["phase_picks_differ"]:
+        raise AssertionError(f"K5 differs from its plain version: {res}")
+    return res
+
+
+def noisy_steady(dev):
+    """The steady capture at 4096 carriers, the upper half with AWGN at
+    8 dB from default_rng(5): (re, im [C, 32,768] f32, noisy [C] bool)
+    on dev."""
+    import torch
+    from tetra_tpu_torch import steady_fixture
+    half = STEADY_CAR // 2
+    re_np, im_np = steady_fixture.capture(STEADY_CAR,
+                                          noisy=range(half, STEADY_CAR),
+                                          seed=5)
+    re = torch.as_tensor(re_np, device=dev)
+    im = torch.as_tensor(im_np, device=dev)
+    return re, im, torch.arange(STEADY_CAR, device=dev) >= half
+
+
+def check_k5(dev, re, im, noisy) -> dict:
+    """K5 on the noisy steady capture (noisy_steady) and at the CPU
+    tests' ragged [7, 602] (random bits, clean); times of the wrapper
+    and of the plain version at the steady shape."""
+    import numpy as np
+    import torch
+    from profile_torch_demod import cuda_ms
+    from tetra_tpu_torch.phy import demod_fused, dqpsk
+    res = {"steady": k5_case(re, im, noisy)}
+    res["ms"] = cuda_ms(lambda: demod_fused.demodulate_hard_ri_pallas(re, im))
+    res["plain_ms"] = cuda_ms(lambda: dqpsk.demodulate_hard_ri(re, im),
+                              reps=3)
+    bits = np.random.default_rng(14).integers(0, 2, (7, 602))
+    iq = dqpsk.modulate(bits.astype(np.uint8), sps=2)
+    rr = torch.as_tensor(iq.real.astype(np.float32), device=dev)
+    ri = torch.as_tensor(iq.imag.astype(np.float32), device=dev)
+    res["ragged"] = k5_case(rr, ri, torch.zeros(7, dtype=torch.bool,
+                                                device=dev))
+    res["max_abs_err"] = max(res["steady"]["max_abs_err"],
+                             res["ragged"]["max_abs_err"])
+    return res
+
+
+def check_k1_steady(re, im) -> dict:
+    """K1 vs its plain version at the steady chain's shape: every K1
+    call that locked_step_ri(fast="pallas") makes on the noisy steady
+    capture (slots cut from K5's output), under decoders=("fused",)
+    (n288) and the default three (SB1 n80, SB2 n144, SCH/F n288, NDB
+    n144 x2), 262,144 rows each. A forward hook on every AssembledCode
+    catches each call's inputs and outputs; bits and ok must equal the
+    plain version's on the same inputs. Times K1 and the plain version
+    on the first call of each n_sym."""
+    import torch
+    from profile_torch_demod import cuda_ms
+    from tetra_tpu_torch import steady_fixture as sf
+    from tetra_tpu_torch.lmac.steady import locked_step_ri
+    from tetra_tpu_torch.ops.viterbi_assembled import (AssembledCode,
+                                                       decode_assembled_plain)
+    calls = []
+
+    def hook(mod, args, out):
+        if isinstance(mod, AssembledCode):
+            calls.append((name, mod, args, out))
+
+    init = sf.load()["init"]
+    inits = torch.full((re.shape[0],), init, dtype=torch.int64,
+                       device=re.device)
+    res = {"rows": re.shape[0] * sf.N_SLOTS, "calls": []}
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    try:
+        for name, dec in (("fused", ("fused",)), ("all3", ALL3)):
+            out = locked_step_ri(re, im, inits, phase_bit=sf.PHASE_BIT,
+                                 n_slots=sf.N_SLOTS, fast="pallas",
+                                 decoders=dec)
+            res[f"crc_ok_{name}"] = int(out["crc_ok"].sum())
+            del out
+    finally:
+        handle.remove()
+    worst = max_abs = 0
+    for name, mod, (x, tab, rm), (bk, ok_k) in calls:
+        plain = lambda: decode_assembled_plain(x, mod.pidx, tab, rm,
+                                               mod.n_sym, mod.boundaries,
+                                               mod.crc_segs)
+        bp, ok_p = plain()
+        call = {"set": name, "n_sym": mod.n_sym, "rows": int(x.shape[0]),
+                "cols": int(x.shape[1]),
+                "mismatches": int((bk != bp).sum()),
+                "ok_mismatches": int((ok_k != ok_p).sum()),
+                "ok_flags": int(ok_k.sum())}
+        worst = max(worst, call["mismatches"], call["ok_mismatches"],
+                    int(x.shape[0] != res["rows"]))
+        max_abs = max(max_abs, int((bk - bp).abs().max()),
+                      int((ok_k - ok_p).abs().max()))
+        key = f"n{mod.n_sym}"
+        if f"ms_{key}" not in res:
+            res[f"ms_{key}"] = cuda_ms(lambda: mod(x, tab, rm))
+            res[f"plain_ms_{key}"] = cuda_ms(plain, reps=1)
+        res["calls"].append(call)
+    del calls
+    res["max_abs_err"] = max_abs
+    n_syms = sorted({c["n_sym"] for c in res["calls"]})
+    if worst or len(res["calls"]) != 6 or n_syms != [80, 144, 288]:
+        raise AssertionError(f"K1 at the steady shape differs from its "
+                             f"plain version: {res}")
+    return res
+
+
+def same_outputs(a: dict, b: dict) -> list:
+    """Keys (or block fields) of two locked_step results that differ."""
+    import torch
+    bad = []
+    if a.keys() != b.keys():
+        return ["keys"]
+    for k in a:
+        if isinstance(a[k], tuple):
+            bad += [f"{k}.{f}" for f, x, y in zip(a[k]._fields, a[k], b[k])
+                    if not torch.equal(x.cpu(), y.cpu())]
+        elif not torch.equal(a[k].cpu(), b[k].cpu()):
+            bad.append(k)
+    return bad
+
+
+def check_steady_small(dev) -> dict:
+    """8 carriers x 64 slots of the steady fixture (carriers 4..7 with
+    AWGN at 8 dB) through locked_step_ri on the card and on the CPU."""
+    import numpy as np
+    import torch
+    from tetra_tpu_torch import steady_fixture as sf
+    from tetra_tpu_torch.lmac.steady import locked_step_ri
+    fx = sf.load()
+    re, im = sf.capture(8, noisy=range(4, 8), seed=6, fx=fx)
+    inits = np.full(8, fx["init"])
+    res = {"carriers": 8, "slots": sf.N_SLOTS}
+    for name, fast, dec in (("pallas_fused", "pallas", ("fused",)),
+                            ("pallas_all3", "pallas", ALL3),
+                            ("soft", "soft", ("fused",))):
+        outs = [locked_step_ri(torch.as_tensor(re, device=d),
+                               torch.as_tensor(im, device=d), inits,
+                               phase_bit=sf.PHASE_BIT, n_slots=sf.N_SLOTS,
+                               fast=fast, decoders=dec)
+                for d in (dev, torch.device("cpu"))]
+        res[name] = {"crc_ok": int(outs[0]["crc_ok"].sum()),
+                     "differs": same_outputs(*outs)}
+        if res[name]["differs"] or res[name]["crc_ok"] == 0:
+            raise AssertionError(f"steady_small: card and CPU differ: {res}")
+    return res
+
+
+def run_steady(dev, card: str) -> dict:
+    """bench stage 3's shape: 4096 carriers x 64 slots of the clean
+    steady fixture through locked_step_ri(fast="pallas") under both
+    decoder sets; per set a warm pass, then a timed pass with the launch
+    counts set to 0 just before it. The input planes are on the card
+    before the clock starts; their host-to-card copy is timed apart."""
+    import torch
+    from tetra_tpu_torch import steady_fixture as sf
+    from tetra_tpu_torch.lmac.steady import locked_step_ri
+    t0 = time.perf_counter()
+    fx = sf.load()
+    re_np, im_np = sf.capture(STEADY_CAR, fx=fx)
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    re = torch.as_tensor(re_np, device=dev)
+    im = torch.as_tensor(im_np, device=dev)
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    T = int(re.shape[1])
+    del re_np, im_np
+    idx = torch.as_tensor(sf.slot_index(STEADY_CAR), device=dev)
+    kinds = torch.as_tensor(fx["kinds"], device=dev)[idx]
+    inits = torch.full((STEADY_CAR,), fx["init"], dtype=torch.int64,
+                       device=dev)
+    res = {"carriers": STEADY_CAR, "slots": sf.N_SLOTS, "samples": T,
+           "capture_build_s": build_s, "h2d_s": h2d_s,
+           "h2d_bytes": 2 * 4 * STEADY_CAR * T, "card": card}
+    for name, dec in (("fused", ("fused",)), ("all3", ALL3)):
+        run = lambda: locked_step_ri(re, im, inits, phase_bit=sf.PHASE_BIT,
+                                     n_slots=sf.N_SLOTS, fast="pallas",
+                                     decoders=dec)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        reset_launches()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_launch = launches()
+        wrong = {"kinds": int((out["kinds"] != kinds).sum()),
+                 "crc_fail": int((~out["crc_ok"]).sum())}
+        for key, (rkey, kind) in sf.BLOCKS.items():
+            want = torch.as_tensor(fx[key], device=dev)[idx]
+            ne = (out[rkey].type1 != want).any(-1)
+            wrong[key] = int((ne & (kinds == kind)).sum() if kind is not None
+                             else ne.sum())
+        res[name] = {"warm_s": warm, "wall_s": wall,
+                     "realtime_carriers": STEADY_CAR * T / 36_000.0 / wall,
+                     "crc_ok": int(out["crc_ok"].sum()), "wrong": wrong,
+                     "launches": n_launch}
+        if any(wrong.values()):
+            raise AssertionError(f"steady {name}: decode differs from the "
+                                 f"fixture: {res[name]}")
+        if n_launch["demod_fused"] <= 0 or n_launch["viterbi_assembled"] <= 0:
+            raise AssertionError(f"steady {name}: K5 or K1 not launched: "
+                                 f"{n_launch}")
+        del out
+        torch.cuda.empty_cache()
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return res
 
 
@@ -475,14 +735,35 @@ def main() -> int:
         emit({"phase": "snr8", **snr8})
         s_launch = snr8["launches"]
 
+        from profile_torch_demod import stage_times
+        re, im, noisy = noisy_steady(dev)
+        k5 = check_k5(dev, re, im, noisy)
+        emit({"phase": "kernels", "kernel": "K5", **k5})
+        k1s = check_k1_steady(re, im)
+        emit({"phase": "kernels", "kernel": "K1 (steady)", **k1s})
+        del re, im, noisy
+        torch.cuda.empty_cache()
+        k7 = stage_times(dev)
+        emit({"phase": "kernels", "kernel": "K7", **k7})
+        emit({"phase": "steady_small", **check_steady_small(dev)})
+        steady = run_steady(dev, card)
+        emit({"phase": "steady", **steady})
+        d_launch = steady["fused"]["launches"]
+
         emit({"kernels": [
             {"name": "viterbi_assembled", "route": "cuda",
              "source": "tetra_tpu_torch/csrc/viterbi_assembled.cu",
              "replaces": "tetra_tpu/ops/viterbi_pallas.py:631",
              "launches": n_launch["viterbi_assembled"],
-             "max_abs_err": float(k1["max_abs_err"]),
+             "max_abs_err": float(max(k1["max_abs_err"],
+                                      k1s["max_abs_err"])),
              "ms": k1["ms_n288"], "plain_ms": k1["plain_ms_n288"],
-             "ms_n80": k1["ms_n80"], "plain_ms_n80": k1["plain_ms_n80"]},
+             "ms_n80": k1["ms_n80"], "plain_ms_n80": k1["plain_ms_n80"],
+             "ms_n144": k1["ms_n144"],
+             "plain_ms_n144": k1["plain_ms_n144"],
+             "steady_launches": d_launch["viterbi_assembled"],
+             **{f"steady_{k}": k1s[k] for k in k1s
+                if k.startswith(("ms_", "plain_ms_"))}},
             {"name": "pfb_wola", "route": "cuda",
              "source": "tetra_tpu_torch/csrc/pfb_wola.cu",
              "replaces": "tetra_tpu/phy/pfb_pallas.py:212",
@@ -501,7 +782,21 @@ def main() -> int:
              "launches": s_launch["viterbi_segmented"],
              "max_abs_err": float(k4["max_abs_err"]),
              "ms": k4["ms_n288"], "plain_ms": k4["plain_ms_n288"],
-             "ms_n80": k4["ms_n80"], "plain_ms_n80": k4["plain_ms_n80"]}]})
+             "ms_n80": k4["ms_n80"], "plain_ms_n80": k4["plain_ms_n80"]},
+            {"name": "demod_fused", "route": "cuda",
+             "source": "tetra_tpu_torch/csrc/demod_fused.cu",
+             "replaces": "tetra_tpu/phy/demod_pallas.py:165",
+             "launches": d_launch["demod_fused"],
+             "max_abs_err": float(k5["max_abs_err"]),
+             "ms": k5["ms"], "plain_ms": k5["plain_ms"]},
+            {"name": "demod_fused (K7 stage bisect, kernel alone)",
+             "route": "cuda",
+             "source": "tetra_tpu_torch/csrc/demod_fused.cu",
+             "replaces": "tools/profile_demod_stages.py:93",
+             "launches": d_launch["demod_fused"],
+             "max_abs_err": float(k7["max_abs_err"]),
+             "ms": k7["ms"]["4096"]["kernel"],
+             "plain_ms": k7["ms"]["4096"]["plain"]}]})
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),

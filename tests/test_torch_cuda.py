@@ -6,15 +6,17 @@ tests/conftest.py is not loaded):
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
+import numpy as np
 import pytest
 import torch
 
+from tetra_tpu_torch import steady_fixture
 from tetra_tpu_torch.lmac import fused
-from tetra_tpu_torch.lmac.pipeline import _sb1_decoder
+from tetra_tpu_torch.lmac.pipeline import _block_decoder
 from tetra_tpu_torch.ops.viterbi import decode_segmented
 from tetra_tpu_torch.ops.viterbi_assembled import decode_assembled_plain
 from tetra_tpu_torch.ops.viterbi_segmented import decode_segmented_k4
-from tetra_tpu_torch.phy import pfb
+from tetra_tpu_torch.phy import demod_fused, dqpsk, pfb
 
 pytestmark = pytest.mark.cuda
 
@@ -36,7 +38,7 @@ def test_k1_matches_plain(shape):
         rm = fused.fused_tables(torch.device("cpu")).rmask[tab.long()]
         K = 512
     else:
-        code = _sb1_decoder(dev).code
+        code = _block_decoder("SB1", dev).code
         tab = torch.zeros(3000, dtype=torch.int32)
         rm = torch.zeros((3000, 0), dtype=torch.int8)
         K = 120
@@ -89,7 +91,7 @@ def test_k2_k3_match_plain(n_chan, T):
 
 def test_wrappers_reject_bad_arguments():
     dev = cuda_device()
-    code = _sb1_decoder(dev).code
+    code = _block_decoder("SB1", dev).code
     x = torch.zeros((4, 120), dtype=torch.int16, device=dev)
     with pytest.raises(TypeError):
         code(x, torch.zeros(4, dtype=torch.int32, device=dev),
@@ -100,3 +102,68 @@ def test_wrappers_reject_bad_arguments():
         decode_segmented_k4(soft.double(), rm, 288, fused.BOUNDARIES)
     with pytest.raises(ValueError):
         decode_segmented_k4(soft, rm, 290, fused.BOUNDARIES)
+
+
+@pytest.mark.parametrize("shape", ["steady_8", "ragged_7x602",
+                                   "tile_1024", "tile_256"])
+def test_k5_matches_plain(shape):
+    """K5 vs dqpsk.demodulate_hard_ri: identical decisions on clean
+    carriers, <= 1e-3 differing on carriers with AWGN at 8 dB, and the
+    same timing phase on every carrier."""
+    dev = cuda_device()
+    tile_t = {"tile_1024": 1024, "tile_256": 256}.get(shape, 512)
+    if shape == "ragged_7x602":
+        bits = np.random.default_rng(14).integers(0, 2, (7, 602))
+        iq = dqpsk.modulate(bits.astype(np.uint8), sps=2)
+        re, im = iq.real.astype(np.float32), iq.imag.astype(np.float32)
+        noisy = np.zeros(7, bool)
+    else:
+        re, im = steady_fixture.capture(8, noisy=range(4, 8), seed=2)
+        noisy = np.arange(8) >= 4
+        if shape != "steady_8":
+            re, im = re[:, :5_000].copy(), im[:, :5_000].copy()
+    re, im = torch.as_tensor(re, device=dev), torch.as_tensor(im, device=dev)
+    sel, best, _ = demod_fused._demod_parts(re, im, tile_t=tile_t)
+    got = demod_fused._unpack_bits(sel).cpu().numpy()
+    want = dqpsk.demodulate_hard_ri(re, im).cpu().numpy()
+    score = dqpsk._stream_score(re, im, 2, 1)[2]
+    assert torch.equal(best, torch.argmax(score, dim=-1))
+    assert np.array_equal(got[~noisy], want[~noisy])
+    if noisy.any():
+        assert np.mean(got[noisy] != want[noisy]) <= 1e-3
+    if got.shape[1] >= 64 + 2 * 510:
+        slots, bits = demod_fused.demodulate_hard_slots_ri_pallas(
+            re, im, 2, phase_bit=64, tile_t=tile_t)
+        assert np.array_equal(bits.cpu().numpy(), got)
+        assert np.array_equal(slots.cpu().numpy().reshape(len(got), -1),
+                              got[:, 64:64 + 2 * 510])
+
+
+def test_k5_rejects_bad_arguments():
+    dev = cuda_device()
+    x = torch.zeros((2, 600), device=dev)
+    with pytest.raises(TypeError):
+        demod_fused.demod_fused(x.double(), x.double())
+    with pytest.raises(ValueError):
+        demod_fused.demod_fused(x.cpu(), x.cpu())
+    for sps in (1, 3, 4):
+        with pytest.raises(ValueError):
+            demod_fused.demod_fused(x, x, sps=sps)
+    with pytest.raises(ValueError):
+        demod_fused.demod_fused(x, x[:1])
+
+
+def test_steady_chain_launches_k5_and_k1():
+    from tetra_tpu_torch.lmac.steady import locked_step_ri
+    from tetra_tpu_torch.ops.viterbi_assembled import decode_assembled
+    dev = cuda_device()
+    fx = steady_fixture.load()
+    re, im = steady_fixture.capture(4, fx=fx)
+    k5, k1 = demod_fused.demod_fused.launches, decode_assembled.launches
+    out = locked_step_ri(torch.as_tensor(re, device=dev),
+                         torch.as_tensor(im, device=dev),
+                         np.full(4, fx["init"]), phase_bit=64, n_slots=64,
+                         fast="pallas", decoders=("fused",))
+    assert bool(out["crc_ok"].all())
+    assert demod_fused.demod_fused.launches == k5 + 1
+    assert decode_assembled.launches == k1 + 1

@@ -92,7 +92,7 @@ def test_sb1_decode_block():
     for i in range(1, 24, 2):
         t5[i, rng.choice(120, size=int(rng.integers(1, 30)),
                          replace=False)] ^= 1
-    got = pipeline.decode_block("SB1", t(t5))
+    got = pipeline.decode_block("SB1", t(t5), 0)
     want = j_pipe.decode_block("SB1", jnp.asarray(t5), jnp.uint32(0))
     for a, b in zip(got, want):
         assert np.array_equal(n(a), np.asarray(b))

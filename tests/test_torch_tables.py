@@ -14,13 +14,15 @@ import tests._torch_util  # noqa: F401  (caps torch threads)
 
 from tetra_tpu import constants as C
 from tetra_tpu.ops import crc as j_crc, rcpc as j_rcpc, \
-    interleave as j_il, scramble as j_scr, viterbi as j_vit
+    interleave as j_il, scramble as j_scr, viterbi as j_vit, \
+    rm3014 as j_rm
 from tetra_tpu.lmac import fused as j_fused, pipeline as j_pipe
 from tetra_tpu.phy import pfb as j_pfb, dqpsk as j_dqpsk, \
     channelizer as j_ch
 from tetra_tpu.io import stream as j_stream
 
-from tetra_tpu_torch.ops import crc, rcpc, interleave, scramble, viterbi
+from tetra_tpu_torch.ops import crc, rcpc, interleave, scramble, viterbi, \
+    rm3014
 from tetra_tpu_torch.ops.viterbi_assembled import pmat_to_index
 from tetra_tpu_torch.lmac import fused, pipeline
 from tetra_tpu_torch.phy import pfb, dqpsk, channelizer
@@ -60,6 +62,12 @@ def test_keystream_np():
                  0xFFFFFFFF, 0x80000003):
         assert np.array_equal(scramble.keystream_np(init, 432),
                               j_scr.keystream_np(init, 432))
+
+
+def test_rm3014_tables():
+    assert np.array_equal(rm3014.generator_matrix(), j_rm.generator_matrix())
+    assert np.array_equal(rm3014._parity_check(), j_rm._parity_check())
+    assert np.array_equal(rm3014._syndrome_table(), j_rm._syndrome_table())
 
 
 def test_trellis_tables():

@@ -128,7 +128,8 @@ def _fused_chunk_body(ring, chunk, end_rel: int, rebase: int, st0, bs0,
     # is segmented by carrier: the last SB1-bearing row at or before
     # each row, if it belongs to the same carrier
     r1 = pipeline.decode_block(
-        "SB1", flat[:, C.SB_BLK1_OFFSET: C.SB_BLK1_OFFSET + C.SB_BLK1_BITS])
+        "SB1", flat[:, C.SB_BLK1_OFFSET: C.SB_BLK1_OFFSET + C.SB_BLK1_BITS],
+        C.SCRAMB_INIT)
     t1 = r1.type1.to(torch.int64)
 
     def field(a, b):

@@ -40,6 +40,7 @@ _SIGNATURES = {
     "tt_pfb_wola": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "tt_resample_rows": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _I,
                          _P],
+    "tt_demod_fused": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "tt_error_string": [_I],
 }
 

@@ -45,10 +45,16 @@ def keystream_np(init: int, n: int) -> np.ndarray:
     return (state_bits @ keystream_matrix(n)) % 2
 
 
+@functools.lru_cache(maxsize=16)
+def _matrix_on(n: int, device: torch.device) -> torch.Tensor:
+    """keystream_matrix(n) as float32 on `device`, copied there once."""
+    return torch.as_tensor(keystream_matrix(n), dtype=torch.float32,
+                           device=device)
+
+
 def keystream(init: torch.Tensor, n: int) -> torch.Tensor:
     """Keystream [..., n] int8 for int64 scrambling codes init [...]."""
-    m = torch.as_tensor(keystream_matrix(n), dtype=torch.float32,
-                        device=init.device)
+    m = _matrix_on(n, init.device)
     sh = torch.arange(32, device=init.device)
     bits = ((init.to(torch.int64)[..., None] >> sh) & 1).to(torch.float32)
     return ((bits @ m).to(torch.int64) & 1).to(torch.int8)

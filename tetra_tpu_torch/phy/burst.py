@@ -1,5 +1,6 @@
-"""Training-sequence match map and normal-burst split (port of the parts
-of tetra_tpu.phy.burst that the fast path uses).
+"""Training-sequence match map and the burst splitters (port of the
+parts of tetra_tpu.phy.burst that the fast path and the steady chain
+use).
 
 Reference behaviour: src/phy/tetra_burst.c:269-372.
 """
@@ -12,7 +13,8 @@ import torch.nn.functional as F
 from tetra_tpu import constants as C
 from tetra_tpu_torch.phy.sync import _SEQS
 
-__all__ = ["train_seq_match", "split_norm_burst", "LOCKED_COLS"]
+__all__ = ["train_seq_match", "split_sync_burst", "split_norm_burst",
+           "LOCKED_COLS"]
 
 # the locked receiver's mask: SYNC | NORM_1 | NORM_2, in scan priority
 # order (the first three match-map columns of tetra_tpu)
@@ -43,6 +45,15 @@ def train_seq_match(bits: torch.Tensor, tol: int = 0) -> torch.Tensor:
     outs = [(corr[:, i] >= float(len(s) - 2 * tol)) & (pos <= L - len(s))
             for i, s in enumerate(seqs)]
     return torch.stack(outs, dim=-1)
+
+
+def split_sync_burst(burst: torch.Tensor):
+    """SB burst [..., 510] -> (sb1 [..., 120], bbk [..., 30], sb2
+    [..., 216]) (tetra_burst.c:346-352)."""
+    sb1 = burst[..., C.SB_BLK1_OFFSET: C.SB_BLK1_OFFSET + C.SB_BLK1_BITS]
+    bbk = burst[..., C.SB_BBK_OFFSET: C.SB_BBK_OFFSET + C.SB_BBK_BITS]
+    sb2 = burst[..., C.SB_BLK2_OFFSET: C.SB_BLK2_OFFSET + C.SB_BLK2_BITS]
+    return sb1, bbk, sb2
 
 
 def split_norm_burst(burst: torch.Tensor):

@@ -1,25 +1,31 @@
-"""pi/4-DQPSK hard- and soft-decision demod (port of the streaming parts
-of tetra_tpu.phy.dqpsk) plus the host modulator used to build fixtures.
+"""pi/4-DQPSK hard- and soft-decision demod (port of tetra_tpu.phy.dqpsk
+without the angle path) plus the host modulator used to build fixtures.
 
 Reference behaviour: src/demod/cqpsk.py (RRC matched filter, differential
 phasor) and src/float_to_bits.c (sign thresholds). Feed-forward design:
 an os-x bank of fractionally shifted RRC matched filters, the
 differential phasor over one symbol, one timing phase per carrier
 picked by the |sin 2θ| metric over the whole chunk, and sign decisions
-(or, soft, the phasor components scaled to int8 reliabilities).
-Plain PyTorch: no TPU kernel sits on this stage of the path.
+(or, soft, the phasor components scaled to int8 reliabilities). The
+slotwise demods re-pick the timing phase and correct the residual
+carrier phase per slot, for degraded signals on the steady chain.
+
+Plain PyTorch. demodulate_hard_ri at os=1 is also the plain version of
+kernel K5 (phy.demod_fused), which fuses that demod on the card.
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 __all__ = ["rrc_taps", "_band_matrix", "modulate", "bits_to_phase",
-           "_fir_real", "_stream_phasors", "demodulate_hard_ri",
-           "demodulate_soft_ri"]
+           "_fir_real", "_stream_score", "_stream_phasors",
+           "demodulate_hard_ri", "demodulate_soft_ri",
+           "demodulate_hard_slotwise_ri", "demodulate_soft_slotwise_ri"]
 
 # dibit -> phase step in units of pi/4 (reference float_to_bits.c:50-72)
 _BITS2STEP = {(0, 0): 1, (0, 1): 3, (1, 0): -1, (1, 1): -3}
@@ -99,10 +105,11 @@ def _fir_real(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
     return y if np.ndim(taps) == 2 else y[:, 0]
 
 
-def _stream_phasors(re, im, sps: int, os: int):
+def _stream_score(re, im, sps: int, os: int):
     """Matched filter (os-x fractional bank), differential phasor and
-    per-carrier timing-phase pick over the whole stream. re, im [C, T]
-    -> selected differential phasors (sel_r, sel_i) [C, T//sps]."""
+    the per-carrier timing metric over the whole stream. re, im [C, T]
+    -> (drp, dip) [C, T//sps, os*sps] phasors by symbol and sample
+    phase, score [C, os*sps] the mean |sin 2θ| of each phase."""
     bank = np.stack([rrc_taps(sps, frac_shift=k / os) for k in range(os)])
     C, T = re.shape
 
@@ -121,9 +128,17 @@ def _stream_phasors(re, im, sps: int, os: int):
     dip = di[:, :n].reshape(C, n // sps2, sps2)
     mag2 = drp * drp + dip * dip
     score = torch.mean(2.0 * torch.abs(drp * dip) / (mag2 + 1e-12), dim=-2)
+    return drp, dip, score
+
+
+def _stream_phasors(re, im, sps: int, os: int):
+    """Per-carrier timing-phase pick over the whole stream: re, im
+    [C, T] -> selected differential phasors (sel_r, sel_i) [C, T//sps]."""
+    drp, dip, score = _stream_score(re, im, sps, os)
+    C, n_sym = drp.shape[:2]
     best = torch.argmax(score, dim=-1)
-    sel_r = drp.gather(2, best[:, None, None].expand(C, n // sps2, 1))[..., 0]
-    sel_i = dip.gather(2, best[:, None, None].expand(C, n // sps2, 1))[..., 0]
+    sel_r = drp.gather(2, best[:, None, None].expand(C, n_sym, 1))[..., 0]
+    sel_i = dip.gather(2, best[:, None, None].expand(C, n_sym, 1))[..., 0]
     return sel_r, sel_i
 
 
@@ -155,3 +170,79 @@ def demodulate_soft_ri(re, im, sps: int = 2, os: int = 1) -> torch.Tensor:
     s1 = torch.clamp(sel_r / nrm, -4.0, 4.0)
     q = torch.round(torch.stack([s0, s1], dim=-1) * 31.0).to(torch.int8)
     return q.reshape(re.shape[0], -1)
+
+
+def _slotwise_phasors(re, im, n_slots: int, phase_bit: int, sps: int):
+    """Degraded-signal demod core: per-SLOT timing pick and blind
+    residual-CFO correction (the feed-forward substitute for the
+    reference's Costas + Mueller&Müller loops, cqpsk.py:254-263).
+
+    A 4x bank of fractionally shifted RRC filters bounds the sampling
+    error at T/16. Per slot (255 symbols) and sample phase, the residual
+    carrier phase eps = (angle(sum d^4 / |d^4|) - pi) / 4 needs no
+    decisions (every pi/4-DQPSK phasor has angle(d^4) = pi + 4 eps); d
+    is de-rotated by eps, then the |sin 2θ| metric picks the phase.
+    re, im [C, T] -> selected phasors (rr, ri) [C, n_slots, 255] for
+    slots whose first bit is at `phase_bit`."""
+    OS = 4
+    bank = np.stack([rrc_taps(sps, frac_shift=k / OS) for k in range(OS)])
+    Cn, T = re.shape
+
+    def mf(x):
+        return _fir_real(x, bank).permute(0, 2, 1).reshape(Cn, T * OS)
+
+    fr, fi = mf(re), mf(im)
+    sps2 = OS * sps
+    lr = F.pad(fr, (sps2, 0))[:, :-sps2]
+    li = F.pad(fi, (sps2, 0))[:, :-sps2]
+    dr = fr * lr + fi * li
+    di = fi * lr - fr * li
+
+    sym0 = phase_bit // 2
+    n_sym = sym0 + n_slots * 255
+
+    def slotted(x):
+        x = x[:, :n_sym * sps2].reshape(Cn, n_sym, sps2)[:, sym0:]
+        return x.reshape(Cn, n_slots, 255, sps2)
+
+    dr, di = slotted(dr), slotted(di)
+    r2 = dr * dr - di * di
+    i2 = 2.0 * dr * di
+    zr = r2 * r2 - i2 * i2
+    zi = 2.0 * r2 * i2
+    m4 = torch.sqrt(zr * zr + zi * zi) + 1e-12
+    ang = torch.atan2(torch.sum(zi / m4, dim=-2), torch.sum(zr / m4, dim=-2))
+    e4 = ang - math.pi                                  # wrap to (-pi, pi]
+    e4 = torch.where(e4 <= -math.pi, e4 + 2.0 * math.pi, e4)
+    eps = e4 / 4.0                                      # [C, S, sps2]
+    ce = torch.cos(-eps)[..., None, :]
+    se = torch.sin(-eps)[..., None, :]
+    cr = dr * ce - di * se
+    ci = dr * se + di * ce
+    mag2 = cr * cr + ci * ci
+    score = torch.mean(2.0 * torch.abs(cr * ci) / (mag2 + 1e-12), dim=-2)
+    best = torch.argmax(score, dim=-1)                  # [C, S]
+    idx = best[..., None, None].expand(Cn, n_slots, 255, 1)
+    return cr.gather(3, idx)[..., 0], ci.gather(3, idx)[..., 0]
+
+
+def demodulate_hard_slotwise_ri(re, im, n_slots: int, phase_bit: int = 0,
+                                sps: int = 2) -> torch.Tensor:
+    """Hard bits [C, n_slots, 510] int8 from the per-slot timing and
+    CFO-corrected phasors (b0 = Im <= 0, b1 = Re < 0)."""
+    rr, ri = _slotwise_phasors(re, im, n_slots, phase_bit, sps)
+    bits = torch.stack([(ri <= 0).to(torch.int8), (rr < 0).to(torch.int8)],
+                       dim=-1)
+    return bits.reshape(re.shape[0], n_slots, 510)
+
+
+def demodulate_soft_slotwise_ri(re, im, n_slots: int, phase_bit: int = 0,
+                                sps: int = 2) -> torch.Tensor:
+    """Soft values [C, n_slots, 510] float32 (positive = bit 0) from
+    the slotwise phasors: each component divided by the slot's mean
+    phasor magnitude and clipped at ±4 (the fast="soft" steady path)."""
+    rr, ri = _slotwise_phasors(re, im, n_slots, phase_bit, sps)
+    nrm = torch.sqrt(rr * rr + ri * ri).mean(dim=-1, keepdim=True) + 1e-9
+    s0 = torch.clamp(ri / nrm, -4.0, 4.0)
+    s1 = torch.clamp(rr / nrm, -4.0, 4.0)
+    return torch.stack([s0, s1], dim=-1).reshape(re.shape[0], n_slots, 510)

@@ -1,6 +1,7 @@
 """Write the capture fixtures of the PyTorch port:
-tetra_tpu_torch/data/prod_mixed.npz (production capture) and
-tetra_tpu_torch/data/snr8_clean.npz (the noisy soft-mode capture).
+tetra_tpu_torch/data/prod_mixed.npz (production capture),
+tetra_tpu_torch/data/snr8_clean.npz (the noisy soft-mode capture) and
+tetra_tpu_torch/data/steady_mixed.npz (the steady locked-step chain).
 
 The file holds the two padded 16-frame rows of bench_mc_e2e.mixed_batch
 (plain and TEA1-encrypted, before the per-carrier roll, bit-packed), the
@@ -20,10 +21,16 @@ package's record of that stage at 1024 carriers (BENCH_r05.json:
 mc_e2e_snr8_crc_ok / _crc_err, and the clean capture's
 mc_e2e_wideband_crc_ok).
 
-Runs on the CPU with jax (the rows come from tetra_tpu's TX chain);
-the argument picks one file (default: both):
+steady_mixed.npz holds the 64 slots of the steady locked-step fixture
+(tests/test_steady.py's _mixed_slots recipe on one grid: slot s has kind
+s % 3 = SYNC, SCH/F, NDB, each with its own payload), bit-packed, the
+scrambling code, and each slot's expected kind and type-1 payloads; the
+64 slots with 64 zero bits at each end make one 32,768-bit carrier.
 
-    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [prod|snr8]
+Runs on the CPU with jax (the rows come from tetra_tpu's TX chain);
+the argument picks one file (default: all):
+
+    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [prod|snr8|steady]
 """
 import os
 import pathlib
@@ -126,6 +133,72 @@ def main_snr8(out=ROOT / "tetra_tpu_torch" / "data" / "snr8_clean.npz"):
     print(f"wrote {out} ({out.stat().st_size} bytes)")
 
 
+STEADY_SLOTS = 64
+
+
+def steady_slots(seed: int = 0):
+    """The steady fixture's slots [64, 510], kinds [64] and type-1
+    payloads by block (zero on slots of another kind), made by
+    tetra_tpu's TX chain with the cell code of MCC 262 / MNC 42 / CC 1."""
+    import jax.numpy as jnp
+    from tetra_tpu import tx, testpdu
+    from tetra_tpu.ops.scramble import scramb_get_init
+    init = scramb_get_init(262, 42, 1)
+    rng = np.random.default_rng(seed)
+    n = STEADY_SLOTS
+    slots = np.zeros((n, 510), np.uint8)
+    kinds = np.arange(n, dtype=np.int32) % 3
+    pay = {"sb1": np.zeros((n, 60), np.uint8),
+           "sb2": np.zeros((n, 124), np.uint8),
+           "schf": np.zeros((n, 268), np.uint8),
+           "ndb1": np.zeros((n, 124), np.uint8),
+           "ndb2": np.zeros((n, 124), np.uint8),
+           "aach": np.zeros((n, 14), np.uint8)}
+    for s in range(n):
+        aa = testpdu.make_access_assign_bits(hdr=s % 4, f1=s % 64,
+                                             f2=(7 * s) % 64)
+        pay["aach"][s] = aa
+        if kinds[s] == 0:
+            p1 = testpdu.make_sync_pdu(cc=1, tn=s % 4 + 1, fn=s // 4 + 1,
+                                       mcc=262, mnc=42)
+            p2 = testpdu.make_sysinfo_pdu(la=1000 + s)
+            pay["sb1"][s], pay["sb2"][s] = p1, p2
+            b = tx.make_sync_burst(p1, p2, aa, jnp.uint32(init))
+        elif kinds[s] == 1:
+            p = testpdu.make_resource_pdu(ssi=0x500 + s)
+            pay["schf"][s] = p
+            b = tx.make_schf_burst(p, aa, jnp.uint32(init))
+        else:
+            b1 = rng.integers(0, 2, 124).astype(np.int8)
+            b2 = rng.integers(0, 2, 124).astype(np.int8)
+            pay["ndb1"][s], pay["ndb2"][s] = b1, b2
+            b = tx.make_ndb_burst(b1, b2, aa, jnp.uint32(init))
+        slots[s] = b
+    return slots, kinds, pay, init
+
+
+def main_steady(out=ROOT / "tetra_tpu_torch" / "data" / "steady_mixed.npz"):
+    import jax.numpy as jnp
+    from tetra_tpu.lmac import steady
+    from tetra_tpu_torch.steady_fixture import BLOCKS
+    slots, kinds, pay, init = steady_slots()
+    # the JAX chain decodes every slot of the fixture to its payloads
+    res = steady.locked_step_bits(jnp.asarray(slots[None].astype(np.int8)),
+                                  jnp.asarray(np.array([init], np.uint32)))
+    assert np.array_equal(np.asarray(res["kinds"])[0], kinds)
+    assert np.asarray(res["crc_ok"]).all()
+    for key, (rkey, kind) in BLOCKS.items():
+        on = kinds == kind if kind is not None else slice(None)
+        got = np.asarray(res[rkey].type1)[0]
+        assert np.array_equal(got[on], pay[key][on]), key
+    out.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(out, slots_packed=np.packbits(slots, axis=1),
+                        kinds=kinds, init=np.int64(init), pad=np.int64(64),
+                        **{f"{k}_packed": np.packbits(v, axis=1)
+                           for k, v in pay.items()})
+    print(f"wrote {out} ({out.stat().st_size} bytes)")
+
+
 def main(out=ROOT / "tetra_tpu_torch" / "data" / "prod_mixed.npz"):
     plain, enc, n_tail = rows()
     # the stored rows must rebuild mixed_batch exactly
@@ -151,10 +224,12 @@ def main(out=ROOT / "tetra_tpu_torch" / "data" / "prod_mixed.npz"):
 
 
 if __name__ == "__main__":
-    which = sys.argv[1:] or ["prod", "snr8"]
-    if not set(which) <= {"prod", "snr8"}:
-        sys.exit(f"usage: {sys.argv[0]} [prod|snr8]")
+    which = sys.argv[1:] or ["prod", "snr8", "steady"]
+    if not set(which) <= {"prod", "snr8", "steady"}:
+        sys.exit(f"usage: {sys.argv[0]} [prod|snr8|steady]")
     if "prod" in which:
         main()
     if "snr8" in which:
         main_snr8()
+    if "steady" in which:
+        main_steady()

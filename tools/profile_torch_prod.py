@@ -2,7 +2,10 @@
 
 Runs the 1024-carrier production capture (tetra_tpu_torch.prod_fixture,
 4 chunks) through tetra_tpu_torch's MultiCarrierReceiver three times
-(with --soft: the 8 dB snr8 capture through demod="soft"):
+(with --soft: the 8 dB snr8 capture through demod="soft"; with
+--steady: the steady fixture at 4096 carriers x 64 slots through
+lmac.steady.locked_step_ri(fast="pallas"), input already on the card,
+for decoders=("fused",) and the default three):
   1. warm-up;
   2. layer breakdown: each layer is wrapped with a synchronize before
      and after, so its host-clock time includes its device work (this
@@ -12,9 +15,10 @@ Runs the 1024-carrier production capture (tetra_tpu_torch.prod_fixture,
      pass's wall time.
 Prints one JSON line per result.
 
-    python3 tools/profile_torch_prod.py [--soft] [n_carriers]
+    python3 tools/profile_torch_prod.py [--soft | --steady] [n_carriers]
 """
 import collections
+import functools
 import json
 import pathlib
 import subprocess
@@ -38,6 +42,9 @@ def run(packed, n_car, ks_path, demod):
 
 
 def timed(acc, name, fn):
+    # wraps copies fn's attributes (a kernel wrapper's launch count), so
+    # a wrapped kernel wrapper still finds its own count
+    @functools.wraps(fn)
     def wrapper(*a, **k):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -48,14 +55,110 @@ def timed(acc, name, fn):
     return wrapper
 
 
+def device_profile(fn, card: str) -> dict:
+    """torch.profiler over one synchronised run of fn: device busy time
+    (kernels, copies, sets), idle share of the run's wall time and the
+    largest device items."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile, ProfilerActivity
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    busy_us = 0.0
+    for e in prof.key_averages():
+        # device-side events only (kernels, memcpy, memset): the CPU ops
+        # that launched them carry the same time again
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+        rows.append((dev_us, e.key, e.count))
+        busy_us += dev_us
+    rows.sort(reverse=True)
+    return {"card": card, "profiled_wall_s": wall,
+            "device_busy_s": busy_us / 1e6,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "top_kernels": [{"name": k[:80], "device_ms": u / 1e3,
+                             "calls": c} for u, k, c in rows[:15]]}
+
+
+def main_steady(n_car: int, card: str):
+    """Layer breakdown and device profile of the steady chain."""
+    from tetra_tpu_torch import steady_fixture as sf
+    from tetra_tpu_torch.lmac import steady
+    from tetra_tpu_torch.ops import viterbi_assembled
+    from tetra_tpu_torch.phy import demod_fused
+    fx = sf.load()
+    re_np, im_np = sf.capture(n_car, fx=fx)
+    re = torch.as_tensor(re_np, device="cuda")
+    im = torch.as_tensor(im_np, device="cuda")
+    inits = torch.full((n_car,), fx["init"], dtype=torch.int64,
+                       device="cuda")
+    stream_s = re.shape[1] / prod_fixture.BITRATE
+    # top-level layers (their sum plus "rest" is the instrumented pass)
+    # and K1 alone, which runs inside the FEC layers
+    top = [(demod_fused, "demodulate_hard_slots_ri_pallas",
+            "demod (K5 + phase pick + gather + unpack + slot cut)"),
+           (steady, "verify_train_seq", "training-sequence check"),
+           (fused, "decode_slots_fused", "fused FEC (assembly + K1 n288)"),
+           (pipeline, "decode_sync_burst", "sync bursts (SB1, BBK, SB2)"),
+           (pipeline, "decode_schf_burst", "SCH/F bursts (BBK, SCH_F)"),
+           (pipeline, "decode_ndb_burst", "NDB bursts (BBK, NDB x2)")]
+    inner = [(viterbi_assembled, "decode_assembled", "of which K1")]
+    for decoders in (("fused",), ("sync", "schf", "ndb")):
+        def run():
+            return steady.locked_step_ri(re, im, inits, phase_bit=64,
+                                         n_slots=64, fast="pallas",
+                                         decoders=decoders)
+
+        def timed_pass():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        warm = timed_pass()
+        plain_wall = timed_pass()
+        acc = collections.defaultdict(float)
+        saved = [(m, a, getattr(m, a)) for m, a, _ in top + inner]
+        for m, a, name in top + inner:
+            setattr(m, a, timed(acc, name, getattr(m, a)))
+        try:
+            inst_wall = timed_pass()
+        finally:
+            for m, a, fn in saved:
+                setattr(m, a, fn)
+        layers = {k: v for k, v in acc.items() if k != "of which K1"}
+        layers["rest (slot views, result selects, Python)"] = \
+            inst_wall - sum(layers.values())
+        print(json.dumps({"card": card, "carriers": n_car,
+                          "decoders": list(decoders), "warm_s": warm,
+                          "wall_s": plain_wall,
+                          "realtime_carriers": n_car * stream_s / plain_wall,
+                          "instrumented_wall_s": inst_wall,
+                          "layers_s": layers,
+                          "k1_inside_fec_s": acc["of which K1"]}),
+              flush=True)
+        print(json.dumps({"decoders": list(decoders),
+                          **device_profile(run, card)}), flush=True)
+
+
 def main():
     args = sys.argv[1:]
     demod = "soft" if "--soft" in args else "hard"
-    args = [a for a in args if a != "--soft"]
-    n_car = int(args[0]) if args else 1024
+    steady_mode = "--steady" in args
+    args = [a for a in args if a not in ("--soft", "--steady")]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
+    if steady_mode:
+        return main_steady(int(args[0]) if args else 4096, card)
+    n_car = int(args[0]) if args else 1024
     if demod == "soft":
         fx = prod_fixture.load_snr8()
         packed = prod_fixture.snr8_capture(n_car, fx)
@@ -98,30 +201,8 @@ def main():
                           "instrumented_wall_s": inst_wall,
                           "layers_s": layers}), flush=True)
 
-        from torch.profiler import profile, ProfilerActivity
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            prof_wall = run(packed, n_car, ks, demod)
-    from torch.autograd import DeviceType
-    rows = []
-    busy_us = 0.0
-    for e in prof.key_averages():
-        # device-side events only (kernels, memcpy, memset): the CPU ops
-        # that launched them carry the same time again
-        if e.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-        rows.append((dev_us, e.key, e.count))
-        busy_us += dev_us
-    rows.sort(reverse=True)
-    print(json.dumps({"card": card, "profiled_wall_s": prof_wall,
-                      "device_busy_s": busy_us / 1e6,
-                      "device_idle_share": 1.0 - busy_us / 1e6 / prof_wall,
-                      "top_kernels": [{"name": k[:80], "device_ms": u / 1e3,
-                                       "calls": c}
-                                      for u, k, c in rows[:15]]}),
-          flush=True)
+        print(json.dumps(device_profile(
+            lambda: run(packed, n_car, ks, demod), card)), flush=True)
 
 
 if __name__ == "__main__":
