@@ -146,7 +146,7 @@ def check_k1(dev, n_rows: int) -> dict:
     144 (SB2 and NDB) on random signs and on corrupted real slots."""
     import torch
     from profile_torch_demod import cuda_ms
-    from tetra_tpu import constants as C
+    from tetra_tpu_torch import constants as C
     from tetra_tpu_torch.lmac.fused import assemble_parts, fused_tables
     from tetra_tpu_torch.lmac.pipeline import _block_decoder
     from tetra_tpu_torch.ops.scramble import keystream_np
@@ -247,7 +247,7 @@ def soft_slot_rows(dev, n_car: int = 64):
     hard decisions, and every emitted slot assembled to mother order.
     Returns (soft [n, 1152] float32, rm [n, 3] int8) on dev."""
     import torch
-    from tetra_tpu import constants as C
+    from tetra_tpu_torch import constants as C
     from tetra_tpu_torch import fastpath, prod_fixture
     from tetra_tpu_torch.lmac.fused import assemble_soft, fused_tables
     from tetra_tpu_torch.phy.sync_vec import sync_scan
@@ -318,7 +318,7 @@ def check_k4(dev, n_rows: int) -> dict:
 
 def counts(mrx) -> dict:
     import numpy as np
-    from tetra_tpu.umac.native_exec import EV
+    from tetra_tpu_torch.umac.native_exec import EV
     kinds = np.concatenate([e["kind"] for e in mrx.native_events])
     return {"crc_ok": sum(c.stats.crc_ok for c in mrx.carriers),
             "crc_err": sum(c.stats.crc_wrong for c in mrx.carriers),

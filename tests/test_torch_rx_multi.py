@@ -116,17 +116,36 @@ print("ok")
 @pytest.mark.parametrize("kwargs", [
     dict(pfb_channels=None),
     dict(control_plane="python"),
-    dict(tl_sdu_sink=print),
     dict(mesh=object()),
-    dict(gsmtap_host="127.0.0.1"),
-    dict(dumpdir="x"),
-    dict(decode_voice=True),
 ])
 def test_unported_options_raise(kwargs):
     base = dict(fs=2e5, pfb_channels=np.arange(8), n_chan=8, device=CPU)
     base.update(kwargs)
     with pytest.raises(NotImplementedError):
         MultiCarrierReceiver([], **base)
+
+
+def _imports_of_jax_package(path: pathlib.Path) -> list:
+    import ast
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom)
+                 and node.level == 0 else [])
+        bad += [f"{path.name}:{node.lineno} {n}" for n in names
+                if n == "tetra_tpu" or n.startswith("tetra_tpu.")]
+    return bad
+
+
+def test_port_sources_import_nothing_of_jax_package():
+    """No module of the port, nor chip_smoke.py, nor the port's profiling
+    tools imports tetra_tpu (as opposed to tetra_tpu_torch)."""
+    files = sorted((ROOT / "tetra_tpu_torch").rglob("*.py"))
+    files += [ROOT / "chip_smoke.py",
+              *sorted((ROOT / "tools").glob("profile_torch_*.py"))]
+    assert len(files) > 30
+    bad = [b for f in files for b in _imports_of_jax_package(f)]
+    assert not bad, bad
 
 
 def test_cuda_request_without_card_raises():
@@ -136,4 +155,6 @@ def test_cuda_request_without_card_raises():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
-    assert resolve_device(None).type == "cpu"
+    with pytest.raises(RuntimeError):
+        resolve_device(None)
+    assert resolve_device("cpu").type == "cpu"

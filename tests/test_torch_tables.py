@@ -222,3 +222,140 @@ def test_fixture_chain_numpy_copies():
         wide, j_ch.synthesize_wideband_fft(base, np.arange(16), 16))
     assert np.array_equal(stream.quantize_iq4c(wide.real, wide.imag),
                           j_stream.quantize_iq4c(wide.real, wide.imag))
+
+
+# ---- the port's copies of tetra_tpu's jax-free host modules -------------
+
+_COPIES = ["constants", "tdma", "umac/native_exec", "crypto/crypto",
+           "crypto/tea", "crypto/taa1", "crypto/hurdle", "crypto/native",
+           "io/gsmtap", "io/tun"]
+
+
+def _code(path: pathlib.Path) -> str:
+    """Module source after its docstring, with the package name
+    normalised."""
+    import ast
+    src = path.read_text()
+    body = ast.parse(src).body
+    start = body[1].lineno if ast.get_docstring(ast.parse(src)) else 1
+    code = "\n".join(src.splitlines()[start - 1:])
+    return code.replace("tetra_tpu_torch", "tetra_tpu")
+
+
+@pytest.mark.parametrize("mod", _COPIES)
+def test_copied_module_code(mod):
+    """Each copy's code equals the original's (docstring aside)."""
+    root = pathlib.Path(__file__).resolve().parent.parent
+    assert _code(root / "tetra_tpu_torch" / f"{mod}.py") == \
+        _code(root / "tetra_tpu" / f"{mod}.py")
+
+
+def _const_names():
+    import types
+    from tetra_tpu_torch import constants as PC
+    return [k for k in vars(PC) if not k.startswith("_") and k.isupper()
+            and not isinstance(vars(PC)[k], types.ModuleType)]
+
+
+@pytest.mark.parametrize("name", _const_names())
+def test_constant(name):
+    from tetra_tpu_torch import constants as PC
+    a, b = getattr(PC, name), getattr(C, name)
+    if isinstance(a, (dict, tuple)):
+        assert repr(a) == repr(b)
+    else:
+        assert type(a) is type(b)
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+        assert np.asarray(a).dtype == np.asarray(b).dtype
+
+
+def test_carrier_hz():
+    from tetra_tpu_torch import constants as PC
+    for band, off, ch in ((4, 0, 1), (3, 2, 3999), (8, 1, 400)):
+        assert PC.dl_carrier_hz(band, ch, off) == C.dl_carrier_hz(band, ch, off)
+        for rev in (0, 1):
+            assert PC.ul_carrier_hz(band, ch, off, 10, rev) == \
+                C.ul_carrier_hz(band, ch, off, 10, rev)
+
+
+def test_tdma_time():
+    from tetra_tpu import tdma as j_tdma
+    from tetra_tpu_torch import tdma
+    for n in (1, 3, 255, 4 * 255 + 7, 100_000):
+        a = tdma.TdmaTime(hn=2, mn=60, fn=18, tn=4, sn=250).add_sym(n)
+        b = j_tdma.TdmaTime(hn=2, mn=60, fn=18, tn=4, sn=250).add_sym(n)
+        assert (a.dump(), a.time2fn()) == (b.dump(), b.time2fn())
+        a, b = a.copy().add_tn(n), b.copy().add_tn(n)
+        assert (a.hn, a.mn, a.fn, a.tn) == (b.hn, b.mn, b.fn, b.tn)
+
+
+def test_native_ev_kinds():
+    from tetra_tpu.umac import native_exec as j_ne
+    from tetra_tpu_torch.umac import native_exec as ne
+    assert ne.EV.NAMES == j_ne.EV.NAMES
+    for k, name in ne.EV.NAMES.items():
+        assert getattr(ne.EV, name) == getattr(j_ne.EV, name) == k
+
+
+@pytest.mark.parametrize("ksg", [1, 2, 3])
+def test_tea_keystream(ksg):
+    from tetra_tpu.crypto import tea as j_tea
+    from tetra_tpu_torch.crypto import native, tea
+    rng = np.random.default_rng(ksg)
+    for _ in range(3):
+        iv = int(rng.integers(0, 1 << 29))
+        key = bytes(rng.integers(0, 256, 10).astype(np.uint8))
+        fn = {1: "tea1", 2: "tea2", 3: "tea3"}[ksg]
+        want = getattr(j_tea, fn)(iv, key, 35)
+        assert getattr(tea, fn)(iv, key, 35) == want
+        got = native.tea_keystream_batch(
+            ksg, np.asarray([iv], np.uint32),
+            np.frombuffer(key, np.uint8).reshape(1, 10), 35)[0]
+        assert bytes(got) == want
+
+
+def test_taa1_and_keystore(tmp_path):
+    from tetra_tpu.crypto import crypto as j_crypto, taa1 as j_taa1
+    from tetra_tpu.tdma import TdmaTime
+    from tetra_tpu_torch.crypto import crypto, taa1
+    key = bytes(range(0xA0, 0xAA))
+    assert taa1.tb5(0x123, 0x2345, 0x15, key) == \
+        j_taa1.tb5(0x123, 0x2345, 0x15, key)
+    ks = tmp_path / "keys.txt"
+    ks.write_text(prod_fixture.KEYSTORE)
+    a, b = crypto.load_keystore(str(ks)), j_crypto.load_keystore(str(ks))
+    assert [vars(k) | {"network_info": vars(k.network_info)} for k in a.keys] \
+        == [vars(k) | {"network_info": vars(k.network_info)} for k in b.keys]
+    assert [vars(n) for n in a.nets] == [vars(n) for n in b.nets]
+    states = []
+    for mod, db in ((crypto, a), (j_crypto, b)):
+        tcs = mod.CryptoState(db=db, cck_id=7, hn=3, la=1000, cc=1)
+        tcs.update_current_network(262, 42)
+        t = TdmaTime(tn=2, fn=5, mn=17)
+        states.append(mod.generate_keystream(tcs, tcs.cck, t, 274))
+    assert states[0] is not None and np.array_equal(*states)
+
+
+def test_crc_and_bit_helpers():
+    from tetra_tpu.utils import bits as j_bits
+    from tetra_tpu_torch.utils import bits
+    rng = np.random.default_rng(3)
+    for n in (0, 1, 31, 60, 76, 284, 300):
+        x = rng.integers(0, 2, n).astype(np.uint8)
+        assert crc.crc16_bits_np(x) == j_crc.crc16_bits_np(x)
+        assert crc.fcs32_np(x) == j_crc.fcs32_np(x)
+        assert bits.pack_bits(x) == j_bits.pack_bits(x)
+        assert bits.bits_to_uint(x[:40]) == j_bits.bits_to_uint(x[:40])
+
+
+def test_gsmtap_packet():
+    from tetra_tpu.io import gsmtap as j_gt
+    from tetra_tpu.tdma import TdmaTime as JT
+    from tetra_tpu_torch.io import gsmtap
+    from tetra_tpu_torch.tdma import TdmaTime
+    x = np.random.default_rng(4).integers(0, 2, 124).astype(np.uint8)
+    for lchan in range(13):
+        args = (lchan, 2, 0, 0, 0, x)
+        assert gsmtap.make_gsmtap_packet(TdmaTime(hn=1, mn=5, fn=7, tn=3),
+                                         *args) == \
+            j_gt.make_gsmtap_packet(JT(hn=1, mn=5, fn=7, tn=3), *args)

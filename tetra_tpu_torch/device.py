@@ -16,14 +16,12 @@ __all__ = ["resolve_device"]
 def resolve_device(device=None) -> torch.device:
     """`device` (None, a string or a torch.device) -> torch.device.
 
-    None picks CUDA when a card is present and the CPU otherwise. A
-    request for CUDA never falls back to the CPU: it raises when no
-    card is available."""
+    None means CUDA: the port's entry points run on the card unless the
+    caller asks for the CPU. A request for CUDA never falls back to the
+    CPU: it raises when no card is available."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    dev = torch.device(device)
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA device requested but torch.cuda is "
                            "not available")

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tetra_tpu import constants as C
+from tetra_tpu_torch import constants as C
 from tetra_tpu_torch.io import stream
 from tetra_tpu_torch.lmac import fused, pipeline
 from tetra_tpu_torch.phy import dqpsk, pfb

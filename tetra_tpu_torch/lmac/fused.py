@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tetra_tpu import constants as C
+from tetra_tpu_torch import constants as C
 from tetra_tpu_torch.lmac.pipeline import BlockResult
 from tetra_tpu_torch.ops import interleave, rcpc, scramble
 from tetra_tpu_torch.ops.crc import crc16_check

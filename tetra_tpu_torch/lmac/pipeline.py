@@ -24,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from tetra_tpu import constants as C
+from tetra_tpu_torch import constants as C
 from tetra_tpu_torch.ops import interleave, rcpc, rm3014, scramble
 from tetra_tpu_torch.ops.viterbi_assembled import AssembledCode
 from tetra_tpu_torch.phy import burst as burst_mod

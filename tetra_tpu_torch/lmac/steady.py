@@ -19,7 +19,7 @@ import functools
 import numpy as np
 import torch
 
-from tetra_tpu import constants as C
+from tetra_tpu_torch import constants as C
 from tetra_tpu_torch.device import resolve_device
 from tetra_tpu_torch.lmac import fused as fused_mod, pipeline
 from tetra_tpu_torch.phy import demod_fused, dqpsk

@@ -1,7 +1,10 @@
-"""CRC16-CCITT over unpacked bits (port of tetra_tpu.ops.crc).
+"""CRC16-CCITT over unpacked bits and the LLC FCS-32 (port of
+tetra_tpu.ops.crc).
 
 Reference behaviour: src/lower_mac/crc_simple.c:46-106 (init 0xFFFF,
-poly 0x1021, MSB first over unpacked bits; check constant 0x1D0F).
+poly 0x1021, MSB first over unpacked bits; check constant 0x1D0F) and
+src/tetra_llc_pdu.c:105-126 (FCS-32). The bit-serial host versions
+(`crc16_bits_np`, `fcs32_np`) back crypto.native's fallbacks.
 
 The CRC of a fixed-length bit vector is affine over GF(2):
 crc(x) = x @ M xor C. The host builds (M, C) once per length; the batch
@@ -14,9 +17,36 @@ import functools
 import numpy as np
 import torch
 
-from tetra_tpu.constants import CRC16_POLY, CRC16_INIT, TETRA_CRC_OK
+from tetra_tpu_torch.constants import (CRC16_POLY, CRC16_INIT, FCS32_POLY,
+                                       TETRA_CRC_OK)
 
-__all__ = ["crc16_matrix", "crc16_check", "crc16_tables", "TETRA_CRC_OK"]
+__all__ = ["crc16_matrix", "crc16_check", "crc16_tables", "crc16_bits_np",
+           "fcs32_np", "TETRA_CRC_OK"]
+
+
+def crc16_bits_np(bits) -> int:
+    """Host bit-serial CRC16 of unpacked bits."""
+    crc = CRC16_INIT
+    for b in np.asarray(bits).reshape(-1):
+        crc ^= (int(b) & 1) << 15
+        crc = (((crc << 1) ^ CRC16_POLY) if crc & 0x8000
+               else (crc << 1)) & 0xFFFF
+    return crc
+
+
+def fcs32_np(bits) -> int:
+    """Host FCS-32 of unpacked bits (reference src/tetra_llc_pdu.c:105-126)."""
+    bits = np.asarray(bits).reshape(-1)
+    n = len(bits)
+    crc = 0xFFFFFFFF
+    if n < 32:
+        crc = (crc << (32 - n)) & 0xFFFFFFFF
+    for b in bits:
+        bit = (int(b) ^ (crc >> 31)) & 1
+        crc = (crc << 1) & 0xFFFFFFFF
+        if bit:
+            crc ^= FCS32_POLY
+    return crc ^ 0xFFFFFFFF
 
 
 @functools.lru_cache(maxsize=32)

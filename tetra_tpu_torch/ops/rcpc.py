@@ -8,7 +8,7 @@ import functools
 
 import numpy as np
 
-from tetra_tpu.constants import PUNCT_SCHEMES
+from tetra_tpu_torch.constants import PUNCT_SCHEMES
 
 __all__ = ["puncture_indices"]
 

@@ -14,7 +14,7 @@ import functools
 import numpy as np
 import torch
 
-from tetra_tpu.constants import RM3014_GEN
+from tetra_tpu_torch.constants import RM3014_GEN
 
 __all__ = ["generator_matrix", "encode", "decode", "encode_uint"]
 

@@ -16,7 +16,7 @@ import functools
 import numpy as np
 import torch
 
-from tetra_tpu.constants import SCRAMB_TAPS
+from tetra_tpu_torch.constants import SCRAMB_TAPS
 
 __all__ = ["keystream_matrix", "keystream_np", "keystream", "scramb_bits"]
 

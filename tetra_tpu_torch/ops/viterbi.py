@@ -21,7 +21,7 @@ import functools
 import numpy as np
 import torch
 
-from tetra_tpu.constants import CONV_GENERATORS_CCH
+from tetra_tpu_torch.constants import CONV_GENERATORS_CCH
 
 __all__ = ["trellis_signs", "decode_segmented", "argmax_low"]
 

@@ -19,7 +19,7 @@ import functools
 import numpy as np
 import torch
 
-from tetra_tpu.constants import CONV_GENERATORS_CCH
+from tetra_tpu_torch.constants import CONV_GENERATORS_CCH
 from tetra_tpu_torch import kernels
 from tetra_tpu_torch.ops.viterbi import decode_segmented, trellis_signs
 

@@ -10,7 +10,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tetra_tpu import constants as C
+from tetra_tpu_torch import constants as C
 from tetra_tpu_torch.phy.sync import _SEQS
 
 __all__ = ["train_seq_match", "split_sync_burst", "split_norm_burst",

@@ -24,7 +24,7 @@ import functools
 
 import torch
 
-from tetra_tpu import constants as C
+from tetra_tpu_torch import constants as C
 from tetra_tpu_torch import kernels
 from tetra_tpu_torch.phy import dqpsk
 

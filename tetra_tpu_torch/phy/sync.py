@@ -6,7 +6,7 @@ priority order y, n, p, q, x (tetra_burst.c:273-283).
 """
 from __future__ import annotations
 
-from tetra_tpu import constants as C
+from tetra_tpu_torch import constants as C
 
 __all__ = ["RING_BITS", "FEED_BITS"]
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from tetra_tpu import constants as C
+from tetra_tpu_torch import constants as C
 from tetra_tpu_torch.phy.burst import LOCKED_COLS, train_seq_match
 from tetra_tpu_torch.phy.sync import FEED_BITS, RING_BITS, _SEQS, _SEQ_LEN
 

@@ -7,7 +7,7 @@ from dataclasses import dataclass, field
 import torch
 import torch.nn.functional as F
 
-from tetra_tpu.tdma import TdmaTime
+from tetra_tpu_torch.tdma import TdmaTime
 
 __all__ = ["RxStats", "CarrierState", "_pack_selected", "_PACK_BITS"]
 

@@ -66,7 +66,7 @@ class MultiCarrierReceiver:
             raise NotImplementedError("GSMTAP export, traffic dumps, voice "
                                       "decode and TL-SDU sinks are not "
                                       "ported")
-        from tetra_tpu.umac.native_exec import NativeControlPlane
+        from tetra_tpu_torch.umac.native_exec import NativeControlPlane
         self.device = resolve_device(device)
         self.fs = float(fs)
         self.sps = sps
@@ -77,7 +77,7 @@ class MultiCarrierReceiver:
         self.carriers = [CarrierState() for _ in range(n_carriers)]
         self.native_cp = NativeControlPlane(n_carriers)
         if keystore_path:
-            from tetra_tpu.crypto.crypto import load_keystore
+            from tetra_tpu_torch.crypto.crypto import load_keystore
             self.native_cp.set_keys(load_keystore(keystore_path))
         self.native_events = []
         self._fast = FastChunkPipeline(n_carriers, self.device,
@@ -174,7 +174,7 @@ class MultiCarrierReceiver:
         """Fetch one chunk and run the native control plane: numpy record
         assembly + ONE C++ walk that advances the TDMA clocks and
         applies SYNC side effects."""
-        from tetra_tpu.umac.native_exec import EV
+        from tetra_tpu_torch.umac.native_exec import EV
         d = self._fast.collect(h)
         n = len(d["carrier"])
         recs = np.column_stack([

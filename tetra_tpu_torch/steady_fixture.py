@@ -16,7 +16,7 @@ import pathlib
 
 import numpy as np
 
-from tetra_tpu import constants as C
+from tetra_tpu_torch import constants as C
 from tetra_tpu_torch.phy.dqpsk import modulate
 
 __all__ = ["STEADY_PATH", "N_SLOTS", "PHASE_BIT", "BLOCKS", "load",

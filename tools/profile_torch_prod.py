@@ -29,7 +29,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import torch
 
-from tetra_tpu.umac.native_exec import NativeControlPlane
+from tetra_tpu_torch.umac.native_exec import NativeControlPlane
 from tetra_tpu_torch import fastpath, prod_fixture
 from tetra_tpu_torch.lmac import fused, pipeline
 
