@@ -14,14 +14,30 @@ Phases (one JSON line each):
               within max|d| <= 1e-4 * max|plain|, K4 (f32 segmented
               Viterbi, n_sym 288 at ~21.5k rows and 80) bit-identical;
               times of both.
+              K6 (unsegmented Viterbi) bit-identical at the voice
+              shape (3,072 rows, n_sym 112 and 72, speech code, half the
+              rows erasure-heavy) and at odd n_sym 77 (control code) and
+              113 (speech code); times of both.
   3. small    an 8-carrier production capture through the receiver on
               the card and on the CPU (plain versions): identical
               per-carrier stats and native event arrays.
+     voice_small  the same capture with traffic dumps, voice decode,
+              GSMTAP (to a local UDP sink on the GSMTAP port) and a
+              TL-SDU sink, on the card and on the CPU: every file,
+              packet and sink call identical.
   4. prod     the 1024-carrier production capture (25 kHz spacing,
               fs 25.6 MS/s, 4 chunks, 102 TEA1-encrypted carriers)
               once warm and once timed; zero CRC errors, decode counts
               inside the window the JAX package recorded, and K1, K2
               and K3 launched by the timed run.
+     voice    the same capture once more, timed, with dumpdir (a
+              temporary directory) and decode_voice: wall time beside
+              prod's, traffic slots dumped, voice frames decoded, K6
+              launched; every carrier whose stats equal the JAX bits
+              path's must hold the fixture's files for its row (plain
+              or encrypted), up to the raw traffic bits the wideband
+              demod gets wrong (<= 1e-5 of them; a voice frame may
+              differ only in such a slot).
   5. soft_small  the 8-carrier snr8 capture through the soft receiver
               (demod="soft") on the card and on the CPU: identical
               stats and events.
@@ -50,11 +66,15 @@ Phases (one JSON line each):
               decoders=("fused",) and the default three, once warm and
               once timed each: every kind, crc_ok and payload as the
               fixture says, K5 and K1 launched by the timed pass.
-Then the kernel summary line, the nvidia-smi line, and last
+Then the kernel summary line (each kernel's launches on its main path,
+max_abs_err, ms, plain_ms, the bound computed from the run's shapes
+and what sets it, and library_ms: null, no single PyTorch call computes
+any of these functions), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits nonzero without that line when
 there is no card, the build fails, or any check fails.
 """
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -67,9 +87,17 @@ TOL = 1e-4          # K2/K3: max |kernel - plain| <= TOL * max |plain|
 N_CAR = 1024
 N_CHUNKS = 4
 K4_ROWS = 21_504    # rows per chunk of the snr8 path's soft FEC
+K6_ROWS = 3_072     # traffic slots per chunk of the prod-1024 voice pass
 CLEAN_CRC_OK = 81_920
 STEADY_CAR = 4096   # bench stage 3: 4096 carriers x 64 slots
 ALL3 = ("sync", "schf", "ndb")
+HBM_BPS = 3.35e12   # H100 SXM device memory rate (bytes/s)
+F32_OPS = 67e12     # H100 SXM f32 rate outside the tensor cores (op/s)
+GSMTAP_PORT = 4729
+# raw type-4 bits of the voice pass that may differ from the JAX bits
+# path's: the wideband demod's bit errors on this clean capture (1.1e-6
+# measured on an H100 80GB HBM3 at 700 W); traffic bits carry no CRC
+RAW_BIT_LIMIT = 1e-5
 
 
 def emit(obj):
@@ -84,6 +112,24 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes the
+    function must move (inputs read once, outputs written once) over
+    the memory rate and its operations over the f32 / integer ALU rate
+    (none of these kernels uses the tensor cores)."""
+    tb, to = nbytes / HBM_BPS, ops / F32_OPS
+    return {"bound_ms": max(tb, to) * 1e3,
+            "bound_by": "bytes" if tb >= to else "operations",
+            "bound_bytes": nbytes, "bound_ops": ops}
+
+
+def viterbi_ops(rows: int, n_sym: int, n_gen: int) -> int:
+    """Operations of a radix-2 16-state decode: per row and step 32
+    branch metrics of n_gen terms, 16 add-compare-selects (4 each) and
+    a traceback step."""
+    return rows * n_sym * (32 * n_gen + 64 + 1)
+
+
 def rel_err(got, want) -> tuple[float, float]:
     d = max(float((g - w).abs().max()) for g, w in zip(got, want))
     scale = max(float(w.abs().max()) for w in want)
@@ -92,6 +138,7 @@ def rel_err(got, want) -> tuple[float, float]:
 
 def _wrappers() -> dict:
     from tetra_tpu_torch.ops.viterbi_assembled import decode_assembled
+    from tetra_tpu_torch.ops.viterbi_decode import decode_k6
     from tetra_tpu_torch.ops.viterbi_segmented import decode_segmented_k4
     from tetra_tpu_torch.phy.demod_fused import demod_fused
     from tetra_tpu_torch.phy.pfb import pfb_channelize_rows, resample_rows
@@ -99,6 +146,7 @@ def _wrappers() -> dict:
             "pfb_wola": pfb_channelize_rows,
             "resample_rows": resample_rows,
             "viterbi_segmented": decode_segmented_k4,
+            "viterbi_decode": decode_k6,
             "demod_fused": demod_fused}
 
 
@@ -194,6 +242,10 @@ def check_k1(dev, n_rows: int) -> dict:
                           int((ok_k - ok_p).abs().max()))
             n_ok += int(ok_k.sum())
         xi, ti, ri = cases[0]
+        res[f"bound_{name}"] = bound(
+            xi.numel() + 4 * ti.numel() + ri.numel()
+            + n_rows * (code.n_sym + len(code.crc_segs)),
+            viterbi_ops(n_rows, code.n_sym, 4) + n_rows * code.n_sym)
         res[f"ms_{name}"] = cuda_ms(lambda: code(xi, ti, ri))
         res[f"plain_ms_{name}"] = cuda_ms(
             lambda: decode_assembled_plain(xi, code.pidx, ti, ri, code.n_sym,
@@ -230,7 +282,19 @@ def check_pfb(dev, n_chan: int, T: int, seed: int) -> dict:
     p3 = lambda: resample_rows_plain(yr, yi, fe.W, fe.bmin, fe.L, fe.M,
                                      n_out)
     d3, s3 = rel_err(k3(), p3())
-    res = {"n_chan": n_chan, "samples": T, "frames": int(yr.shape[0]),
+    frames = int(yr.shape[0])
+    taps = fe.h.numel() // n_chan
+    # K2: per frame and channel a complex window-and-fold over `taps`
+    # branches (4 ops each) and its share of a C-point complex FFT
+    # (5 log2 C); K3: per output sample and channel <= 8 live taps of a
+    # complex row (4 ops each)
+    b2 = bound(8 * T + 4 * (fe.h.numel() + fe.twc.numel() + fe.tws.numel())
+               + 8 * frames * n_chan,
+               frames * n_chan * (4 * taps + 5 * math.log2(n_chan)))
+    b3 = bound(8 * frames * n_chan + 8 * n_out * n_chan,
+               n_out * n_chan * 4 * 8)
+    res = {"n_chan": n_chan, "samples": T, "frames": frames,
+           "k2_bound": b2, "k3_bound": b3,
            "n_out": n_out,
            "k2_max_abs_err": d2, "k2_max_abs_plain": s2,
            "k3_max_abs_err": d3, "k3_max_abs_plain": s3,
@@ -306,6 +370,9 @@ def check_k4(dev, n_rows: int) -> dict:
         bp = decode_segmented(xi, ri, ns, bnd)
         res[f"mismatches_{name}"] = int((bk != bp).sum())
         worst = max(worst, int((bk.int() - bp.int()).abs().max()))
+        res[f"bound_{name}"] = bound(
+            4 * xi.shape[0] * 4 * ns + ri.numel() + xi.shape[0] * ns,
+            viterbi_ops(xi.shape[0], ns, 4))
         res[f"ms_{name}"] = cuda_ms(lambda: decode_segmented_k4(xi, ri, ns,
                                                                 bnd))
         res[f"plain_ms_{name}"] = cuda_ms(
@@ -313,6 +380,45 @@ def check_k4(dev, n_rows: int) -> dict:
     res["max_abs_err"] = worst
     if res["mismatches_n288"] or res["mismatches_n80"]:
         raise AssertionError(f"K4 differs from its plain version: {res}")
+    return res
+
+
+def check_k6(dev) -> dict:
+    """K6 vs its plain version, bits identical: at the voice shape
+    (K6_ROWS rows, n_sym 112 and 72, speech code; +-127 or 0 at random,
+    half the rows erasure-heavy (90% zeros), the first 8 all erasures:
+    pure ties) and at odd n_sym 77 (control code) and 113 (speech code)
+    on 256 such rows."""
+    import torch
+    from profile_torch_demod import cuda_ms
+    from tetra_tpu_torch import constants as C
+    from tetra_tpu_torch.ops.viterbi import decode
+    from tetra_tpu_torch.ops.viterbi_decode import decode_k6
+    g = torch.Generator(device="cpu").manual_seed(13)
+    tch, cch = C.CONV_GENERATORS_TCH, C.CONV_GENERATORS_CCH
+    res = {"rows": K6_ROWS}
+    worst = 0
+    for name, rows, n_sym, gens in (("n112", K6_ROWS, 112, tch),
+                                    ("n72", K6_ROWS, 72, tch),
+                                    ("n77", 256, 77, cch),
+                                    ("n113", 256, 113, tch)):
+        w = n_sym * len(gens)
+        x = (torch.randint(-1, 2, (rows, w), generator=g) * 127).float()
+        half = rows // 2
+        x[:half][torch.rand((half, w), generator=g) < 0.9] = 0
+        x[:8] = 0
+        x = x.to(dev)
+        bk, bp = decode_k6(x, n_sym, gens), decode(x, n_sym, gens)
+        res[f"mismatches_{name}"] = int((bk != bp).sum())
+        worst = max(worst, int((bk.int() - bp.int()).abs().max()))
+        res[f"bound_{name}"] = bound(4 * rows * w + rows * n_sym,
+                                     viterbi_ops(rows, n_sym, len(gens)))
+        res[f"ms_{name}"] = cuda_ms(lambda: decode_k6(x, n_sym, gens))
+        res[f"plain_ms_{name}"] = cuda_ms(lambda: decode(x, n_sym, gens),
+                                          reps=2)
+    res["max_abs_err"] = worst
+    if any(res[k] for k in res if k.startswith("mismatches_")):
+        raise AssertionError(f"K6 differs from its plain version: {res}")
     return res
 
 
@@ -356,6 +462,137 @@ def check_small(ks_path: str, dev) -> dict:
     if not (res["stats_equal"] and res["events_equal"]
             and res["crc_err"] == 0 and res["crc_ok"] > 0):
         raise AssertionError(f"small capture: card and CPU differ: {res}")
+    return res
+
+
+def check_voice_small(ks_path: str, dev) -> dict:
+    """The 8-carrier capture with traffic dumps, voice decode, GSMTAP
+    and a TL-SDU sink on the card and on the CPU: identical files,
+    packets and sink calls."""
+    import tempfile
+    import udp_sink
+    from tetra_tpu_torch import prod_fixture
+    bits, _ = prod_fixture.mixed_bits(8, 0.25)
+    packed = prod_fixture.wideband_capture(bits)
+    outs = []
+    for d in (dev, "cpu"):
+        calls = []
+        sink = lambda c, pd, pt, b: calls.append((c, pd, pt, b.tobytes()))
+        with tempfile.TemporaryDirectory() as tmp, \
+                udp_sink.collect(GSMTAP_PORT) as udp:
+            prod_fixture.run_receiver(packed, 8, ks_path, d, 2,
+                                      dumpdir=tmp, decode_voice=True,
+                                      gsmtap_host="127.0.0.1",
+                                      tl_sdu_sink=sink)
+            files = prod_fixture.read_tree(tmp)
+        outs.append((files, udp.packets, calls))
+    (fg, pg, cg), (fc, pc, cc) = outs
+    res = {"carriers": 8, "files": len(fg),
+           "voice_bytes": sum(len(v) for k, v in fg.items()
+                              if k.endswith(".cod")),
+           "gsmtap_packets": len(pg), "sink_calls": len(cg),
+           "files_equal": fg == fc, "packets_equal": pg == pc,
+           "sink_calls_equal": cg == cc}
+    if not (res["files_equal"] and res["packets_equal"]
+            and res["sink_calls_equal"] and res["voice_bytes"] > 0
+            and res["gsmtap_packets"] > 0 and res["sink_calls"] > 0):
+        raise AssertionError(f"voice_small: card and CPU differ: {res}")
+    return res
+
+
+def traffic_diff(got: dict, want: dict) -> dict:
+    """One carrier's dump files against the fixture's: names, sizes and
+    .txt must be equal; returns the .out slots with differing words
+    ({usage_tsn: slots}), the count of differing words, and the .cod
+    frames that differ in a slot whose .out block is equal (a voice
+    frame may differ only where its raw type-4 bits do)."""
+    import numpy as np
+    if {k: len(v) for k, v in got.items()} != \
+            {k: len(v) for k, v in want.items()}:
+        return {"structure": True}
+    out_slots, words, bad_cod = {}, 0, []
+    for name in got:
+        if name.endswith(".txt") and got[name] != want[name]:
+            return {"structure": True}
+        if name.endswith(".out") and got[name] != want[name]:
+            d = (np.frombuffer(got[name], np.int16)
+                 != np.frombuffer(want[name], np.int16)).reshape(-1, 690)
+            out_slots[name[8:-4]] = set(np.flatnonzero(d.any(1)).tolist())
+            words += int(d.sum())
+    for name in got:
+        if name.endswith(".cod") and got[name] != want[name]:
+            d = (np.frombuffer(got[name], np.uint8)
+                 != np.frombuffer(want[name], np.uint8)).reshape(-1, 35)
+            slots = set(np.flatnonzero(d.any(1)).tolist())
+            bad_cod += sorted(slots - out_slots.get(name[6:-4], set()))
+    return {"structure": False, "out_slots": out_slots, "words": words,
+            "bad_cod": bad_cod}
+
+
+def run_voice(ks_path: str, packed, n_enc: int, fx: dict, dev, card: str,
+              prod_wall: float) -> dict:
+    """The 1024-carrier production capture, one timed pass with dumpdir
+    and decode_voice (launch counts set to 0 just before it); every
+    carrier's files against the fixture's expectation (the JAX bits
+    path's files on the same rows). A carrier whose stats equal the
+    bits path's must hold the same file names, sizes and .txt lines; its
+    .out blocks may differ only in raw type-4 bits the wideband demod
+    got wrong (traffic bits carry no CRC, so the stats cannot show
+    them), at most RAW_BIT_LIMIT of the dumped bits, and a voice frame
+    only in such a slot."""
+    import tempfile
+    import numpy as np
+    from tetra_tpu_torch import prod_fixture
+    want = prod_fixture.expected_traffic(fx)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        mrx, wall = prod_fixture.run_receiver(packed, N_CAR, ks_path, dev,
+                                              N_CHUNKS, dumpdir=tmp,
+                                              decode_voice=True)
+        n_launch = launches()
+        files = prod_fixture.read_tree(tmp)
+    mine = np.asarray([(c.stats.bursts, c.stats.crc_ok, c.stats.crc_wrong)
+                       for c in mrx.carriers])
+    as_bits = (mine == fx["jax_bits_stats"]).all(1)
+    per = {c: {} for c in range(N_CAR)}
+    for k, v in files.items():
+        c, name = k.split("/", 1)
+        per[int(c[len("carrier"):])][name] = v
+    exact, raw, bad = 0, {}, []
+    for c in np.flatnonzero(as_bits).tolist():
+        exp = want["enc" if c >= N_CAR - n_enc else "plain"]
+        if per[c] == exp:
+            exact += 1
+            continue
+        d = traffic_diff(per[c], exp)
+        if d["structure"] or d["bad_cod"]:
+            bad.append(c)
+        else:
+            raw[c] = {"words": d["words"],
+                      "slots": {k: sorted(v) for k, v in d["out_slots"].items()}}
+    n_slots = sum(len(v) // 1380 for k, v in files.items()
+                  if k.endswith(".out"))
+    raw_words = sum(r["words"] for r in raw.values())
+    rt = N_CAR * int(fx["length"]) / prod_fixture.BITRATE
+    res = {"carriers": N_CAR, "chunks": N_CHUNKS, "wall_s": wall,
+           "realtime_carriers": rt / wall, "prod_wall_s": prod_wall,
+           "prod_realtime_carriers": rt / prod_wall, "card": card,
+           **counts(mrx), "traffic_slots_dumped": n_slots,
+           "voice_frames": sum(len(v) // 35 for k, v in files.items()
+                               if k.endswith(".cod")),
+           "dump_bytes": sum(map(len, files.values())),
+           "carriers_equal_jax_bits_path": int(as_bits.sum()),
+           "carriers_differing_from_bits_path":
+               np.flatnonzero(~as_bits).tolist(),
+           "carriers_with_expected_files": exact,
+           "carriers_with_raw_bit_differences": raw,
+           "raw_bit_fraction": raw_words / max(n_slots * 432, 1),
+           "carriers_bits_equal_files_differ": bad,
+           "launches": n_launch}
+    if bad or res["raw_bit_fraction"] > RAW_BIT_LIMIT:
+        raise AssertionError(f"voice: files differ from the fixture: {res}")
+    if n_launch["viterbi_decode"] <= 0 or res["voice_frames"] <= 0:
+        raise AssertionError(f"voice: K6 not launched: {res}")
     return res
 
 
@@ -462,6 +699,10 @@ def check_k5(dev, re, im, noisy) -> dict:
     from profile_torch_demod import cuda_ms
     from tetra_tpu_torch.phy import demod_fused, dqpsk
     res = {"steady": k5_case(re, im, noisy)}
+    # planes in (8 B a sample), decisions out (1 B); per sample a complex
+    # matched filter (4 ops a tap), the differential phasor, the metric
+    n = re.numel()
+    res["bound"] = bound(9 * n, n * (4 * len(dqpsk.rrc_taps(2)) + 16))
     res["ms"] = cuda_ms(lambda: demod_fused.demodulate_hard_ri_pallas(re, im))
     res["plain_ms"] = cuda_ms(lambda: dqpsk.demodulate_hard_ri(re, im),
                               reps=3)
@@ -528,6 +769,11 @@ def check_k1_steady(re, im) -> dict:
                       int((ok_k - ok_p).abs().max()))
         key = f"n{mod.n_sym}"
         if f"ms_{key}" not in res:
+            n = int(x.shape[0])
+            res[f"bound_{key}"] = bound(
+                x.numel() + 4 * tab.numel() + rm.numel()
+                + n * (mod.n_sym + len(mod.crc_segs)),
+                viterbi_ops(n, mod.n_sym, 4) + n * mod.n_sym)
             res[f"ms_{key}"] = cuda_ms(lambda: mod(x, tab, rm))
             res[f"plain_ms_{key}"] = cuda_ms(plain, reps=1)
         res["calls"].append(call)
@@ -679,6 +925,8 @@ def main() -> int:
         emit({"phase": "kernels", "kernel": "K1", **k1})
         k4 = check_k4(dev, K4_ROWS)
         emit({"phase": "kernels", "kernel": "K4", **k4})
+        k6 = check_k6(dev)
+        emit({"phase": "kernels", "kernel": "K6", **k6})
         # main-path shapes: one wideband chunk of the 1024-carrier capture
         # plus its overlap-save history; CPU-test shapes: C = 8
         k23 = check_pfb(dev, N_CAR, 6_672_000, 1)
@@ -688,6 +936,8 @@ def main() -> int:
 
         with prod_fixture.keystore_file() as ks_path:
             emit({"phase": "small", **check_small(ks_path, dev)})
+            emit({"phase": "voice_small",
+                  **check_voice_small(ks_path, dev)})
 
             t0 = time.perf_counter()
             fx = prod_fixture.load()
@@ -704,6 +954,7 @@ def main() -> int:
             mrx, wall = prod_fixture.run_receiver(packed, N_CAR, ks_path,
                                                   dev, N_CHUNKS)
             n_launch = launches()
+            voice = run_voice(ks_path, packed, n_enc, fx, dev, card, wall)
         got = counts(mrx)
         ref = {k: [int(v) for v in fx[f"ref_{k}"]] for k in got}
         in_window = {k: ref[k][0] <= got[k] <= ref[k][1] for k in got}
@@ -729,6 +980,7 @@ def main() -> int:
         if min(n_launch[k] for k in ("viterbi_assembled", "pfb_wola",
                                      "resample_rows")) <= 0:
             raise AssertionError(f"a kernel was not launched: {n_launch}")
+        emit({"phase": "voice", **voice})
 
         emit({"phase": "soft_small", **check_soft_small(dev)})
         snr8 = run_snr8(dev, card)
@@ -763,32 +1015,45 @@ def main() -> int:
              "plain_ms_n144": k1["plain_ms_n144"],
              "steady_launches": d_launch["viterbi_assembled"],
              **{f"steady_{k}": k1s[k] for k in k1s
-                if k.startswith(("ms_", "plain_ms_"))}},
+                if k.startswith(("ms_", "plain_ms_"))},
+             **k1["bound_n288"], "library_ms": None},
             {"name": "pfb_wola", "route": "cuda",
              "source": "tetra_tpu_torch/csrc/pfb_wola.cu",
              "replaces": "tetra_tpu/phy/pfb_pallas.py:212",
              "launches": n_launch["pfb_wola"],
              "max_abs_err": k23["k2_max_abs_err"],
-             "ms": k23["k2_ms"], "plain_ms": k23["k2_plain_ms"]},
+             "ms": k23["k2_ms"], "plain_ms": k23["k2_plain_ms"],
+             **k23["k2_bound"], "library_ms": None},
             {"name": "resample_rows", "route": "cuda",
              "source": "tetra_tpu_torch/csrc/resample_rows.cu",
              "replaces": "tetra_tpu/phy/pfb_pallas.py:337",
              "launches": n_launch["resample_rows"],
              "max_abs_err": k23["k3_max_abs_err"],
-             "ms": k23["k3_ms"], "plain_ms": k23["k3_plain_ms"]},
+             "ms": k23["k3_ms"], "plain_ms": k23["k3_plain_ms"],
+             **k23["k3_bound"], "library_ms": None},
             {"name": "viterbi_segmented", "route": "cuda",
              "source": "tetra_tpu_torch/csrc/viterbi_segmented.cu",
              "replaces": "tetra_tpu/ops/viterbi_pallas.py:967",
              "launches": s_launch["viterbi_segmented"],
              "max_abs_err": float(k4["max_abs_err"]),
              "ms": k4["ms_n288"], "plain_ms": k4["plain_ms_n288"],
-             "ms_n80": k4["ms_n80"], "plain_ms_n80": k4["plain_ms_n80"]},
+             "ms_n80": k4["ms_n80"], "plain_ms_n80": k4["plain_ms_n80"],
+             **k4["bound_n288"], "library_ms": None},
+            {"name": "viterbi_decode", "route": "cuda",
+             "source": "tetra_tpu_torch/csrc/viterbi_segmented.cu",
+             "replaces": "tetra_tpu/ops/viterbi_pallas.py:1019",
+             "launches": voice["launches"]["viterbi_decode"],
+             "max_abs_err": float(k6["max_abs_err"]),
+             "ms": k6["ms_n112"], "plain_ms": k6["plain_ms_n112"],
+             **{k: k6[k] for k in k6 if k.startswith(("ms_", "plain_ms_"))},
+             **k6["bound_n112"], "library_ms": None},
             {"name": "demod_fused", "route": "cuda",
              "source": "tetra_tpu_torch/csrc/demod_fused.cu",
              "replaces": "tetra_tpu/phy/demod_pallas.py:165",
              "launches": d_launch["demod_fused"],
              "max_abs_err": float(k5["max_abs_err"]),
-             "ms": k5["ms"], "plain_ms": k5["plain_ms"]},
+             "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+             **k5["bound"], "library_ms": None},
             {"name": "demod_fused (K7 stage bisect, kernel alone)",
              "route": "cuda",
              "source": "tetra_tpu_torch/csrc/demod_fused.cu",
@@ -796,7 +1061,8 @@ def main() -> int:
              "launches": d_launch["demod_fused"],
              "max_abs_err": float(k7["max_abs_err"]),
              "ms": k7["ms"]["4096"]["kernel"],
-             "plain_ms": k7["ms"]["4096"]["plain"]}]})
+             "plain_ms": k7["ms"]["4096"]["plain"],
+             **k5["bound"], "library_ms": None}]})
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),

@@ -10,10 +10,12 @@ import numpy as np
 import pytest
 import torch
 
-from tetra_tpu_torch import steady_fixture
+from tetra_tpu_torch import constants as C, steady_fixture
 from tetra_tpu_torch.lmac import fused
 from tetra_tpu_torch.lmac.pipeline import _block_decoder
-from tetra_tpu_torch.ops.viterbi import decode_segmented
+from tetra_tpu_torch.ops import acelp
+from tetra_tpu_torch.ops.viterbi import decode, decode_segmented
+from tetra_tpu_torch.ops.viterbi_decode import decode_k6
 from tetra_tpu_torch.ops.viterbi_assembled import decode_assembled_plain
 from tetra_tpu_torch.ops.viterbi_segmented import decode_segmented_k4
 from tetra_tpu_torch.phy import demod_fused, dqpsk, pfb
@@ -69,6 +71,37 @@ def test_k4_matches_plain(shape):
     assert torch.equal(bits, decode_segmented(x, rm, n_sym, bnd))
 
 
+@pytest.mark.parametrize("n_sym,code", [(112, "tch"), (72, "tch"),
+                                        (77, "cch"), (113, "tch")])
+def test_k6_matches_plain(n_sym, code):
+    """K6 bit-identical to its plain version on the voice alphabet
+    (+-127 or 0), half the rows erasure-heavy, 8 rows all erasures."""
+    dev = cuda_device()
+    gens = {"tch": C.CONV_GENERATORS_TCH, "cch": C.CONV_GENERATORS_CCH}[code]
+    g = torch.Generator().manual_seed(n_sym)
+    w = n_sym * len(gens)
+    x = (torch.randint(-1, 2, (3000, w), generator=g) * 127).float()
+    x[:1500][torch.rand((1500, w), generator=g) < 0.9] = 0
+    x[:8] = 0
+    x = x.to(dev)
+    n0 = decode_k6.launches
+    assert torch.equal(decode_k6(x, n_sym, gens), decode(x, n_sym, gens))
+    assert decode_k6.launches == n0 + 1
+
+
+def test_voice_decode_on_card_matches_cpu():
+    """tch_s_decode through K6 equals the CPU plain scan, on full frames
+    and on 216-bit NDB halves."""
+    dev = cuda_device()
+    t3 = torch.randint(0, 2, (500, 432),
+                       generator=torch.Generator().manual_seed(9))
+    for width in (432, 216):
+        got = acelp.tch_s_decode(t3[:, :width].to(dev))
+        want = acelp.tch_s_decode(t3[:, :width])
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
 @pytest.mark.parametrize("n_chan,T", [(8, 40_000), (1024, 400_000),
                                       (12, 30_000)])
 def test_k2_k3_match_plain(n_chan, T):
@@ -102,6 +135,14 @@ def test_wrappers_reject_bad_arguments():
         decode_segmented_k4(soft.double(), rm, 288, fused.BOUNDARIES)
     with pytest.raises(ValueError):
         decode_segmented_k4(soft, rm, 290, fused.BOUNDARIES)
+    with pytest.raises(TypeError):
+        decode_k6(soft.double(), 288)
+    with pytest.raises(ValueError):
+        decode_k6(soft, 289)
+    with pytest.raises(ValueError):
+        decode_k6(soft[:, :100], 112, C.CONV_GENERATORS_TCH)
+    with pytest.raises(ValueError):
+        decode_k6(soft[:, ::2], 112, C.CONV_GENERATORS_TCH)
 
 
 @pytest.mark.parametrize("shape", ["steady_8", "ragged_7x602",

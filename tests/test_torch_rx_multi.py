@@ -1,8 +1,8 @@
 """The PyTorch port's production receiver end to end vs tetra_tpu's
 MultiCarrierReceiver on the CPU (TestProdConfig capture: 8 carriers,
 fs = 200 kHz, PFB, native control plane, TEA1-encrypted carriers), the
-pre-demodulated bits entry, the jax-free import, and the options that
-are not ported."""
+pre-demodulated bits entry, the imports (nothing of jax or tetra_tpu),
+and the options that are not ported."""
 import os
 import pathlib
 import subprocess
@@ -89,27 +89,41 @@ def test_bits_entry_matches_jax():
     _same_receivers(ref, got, B)
 
 
-def test_import_is_jax_free():
-    """A fresh interpreter imports the port, runs a 2-carrier wideband
-    slice and never loads jax."""
+def test_import_is_jax_free(tmp_path):
+    """A fresh interpreter imports every module of the port, runs a
+    2-carrier wideband slice with traffic dumps, voice decode, GSMTAP
+    and a TL-SDU sink, and never loads jax nor any tetra_tpu module."""
     code = """
-import sys
+import importlib, pkgutil, sys
 import numpy as np
+import tetra_tpu_torch
+for m in pkgutil.walk_packages(tetra_tpu_torch.__path__, "tetra_tpu_torch."):
+    importlib.import_module(m.name)
 import tetra_tpu_torch.rx_multi as rm
 from tetra_tpu_torch import prod_fixture
 bits, _ = prod_fixture.mixed_bits(8, 0.25)
-packed = prod_fixture.wideband_capture(bits[:, :8000])
-mrx = rm.MultiCarrierReceiver([], fs=2e5, pfb_channels=[2, 5], n_chan=8,
-                              device="cpu")
-stats = mrx.process_iq4c(packed)
+packed = prod_fixture.wideband_capture(bits[:, :12000])
+sdus = []
+with prod_fixture.keystore_file() as ks:
+    mrx = rm.MultiCarrierReceiver(
+        [], fs=2e5, pfb_channels=[2, 7], n_chan=8, device="cpu",
+        keystore_path=ks, dumpdir=sys.argv[1], decode_voice=True,
+        gsmtap_host="127.0.0.1", tl_sdu_sink=lambda *a: sdus.append(a))
+    stats = mrx.process_iq4c(packed)
 assert all(s.crc_ok > 0 and s.crc_wrong == 0 for s in stats), stats
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+assert sdus
+import pathlib
+assert list(pathlib.Path(sys.argv[1]).rglob("voice_*.cod"))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "tetra_tpu"))
+assert not bad, bad
 print("ok")
 """
     env = dict(os.environ, OMP_NUM_THREADS="2")
     env.pop("XLA_FLAGS", None)
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 

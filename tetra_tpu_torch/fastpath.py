@@ -9,8 +9,11 @@ to 36 kHz (K3) -> hard demod at os=4 -> ring splice -> sync scan ->
 GLOBAL slot compaction (one stable argsort over carriers x steps) ->
 SB1 pre-decode (K1, 80 steps) -> scrambling-code forward fill ->
 kind-compacted FEC (K1, 288 steps) -> per-kind section packing -> ONE
-int8 bundle [G*40 + B*32]. The ring tail, the sync carry and the
-scrambling codes stay on the device between chunks. On the host the
+int8 bundle [G*40 + B*32], plus the traffic payloads t4_full [G, 432] and
+t4_b2 [G, 216] (each slot's type-4 bits: the whole 432-bit block, and
+the second half with its own keystream), which stay on the device for
+the receiver's traffic dumps and voice decode. The ring tail, the sync
+carry and the scrambling codes stay on the device between chunks. On the host the
 bundle is parsed with numpy (`_decode_segments`) and walked by the C++
 control plane. If a chunk emits more slots than the row budget G, the
 chunk re-runs from its saved inputs with the sufficient budget
@@ -19,13 +22,12 @@ chunk re-runs from its saved inputs with the sufficient budget
 Soft mode (soft=True, the receiver's demod="soft"): the demod emits
 int8 reliabilities (positive = bit 0) and the ring carries them; the
 sync scan (with `tol` training-sequence bit errors allowed), the SB1
-pre-decode and the payload sections read hard bits (soft < 0), and the
-FEC gathers the soft slot rows and decodes them with kernel K4. Hard
+pre-decode, the payload sections and the traffic payloads read hard
+bits (soft < 0), and the FEC gathers the soft slot rows and decodes them with kernel K4. Hard
 bits fed to a soft pipeline become full-confidence ±31 values.
 
-The bundle bytes are identical to tetra_tpu's for the same inputs.
-Sharded meshes and the traffic-payload arrays (t4_full / t4_b2, used
-only by dump files) are not ported.
+The bundle bytes and the traffic payloads are identical to tetra_tpu's
+for the same inputs. Sharded meshes are not ported.
 """
 from __future__ import annotations
 
@@ -38,7 +40,9 @@ import torch.nn.functional as F
 from tetra_tpu_torch import constants as C
 from tetra_tpu_torch.io import stream
 from tetra_tpu_torch.lmac import fused, pipeline
+from tetra_tpu_torch.ops import scramble
 from tetra_tpu_torch.phy import dqpsk, pfb
+from tetra_tpu_torch.phy.burst import split_norm_burst
 from tetra_tpu_torch.phy.sync import FEED_BITS, RING_BITS
 from tetra_tpu_torch.phy.sync_vec import sync_scan
 from tetra_tpu_torch.rx import _PACK_BITS, _pack_selected
@@ -80,7 +84,8 @@ def _fused_chunk_body(ring, chunk, end_rel: int, rebase: int, st0, bs0,
     scrambling codes. g_rows: global row budget G.
 
     Returns (bundle [G*ROW_BYTES + B*32] int8, new_ring,
-    (st, bs, nb, nfs, scr_final))."""
+    (st, bs, nb, nfs, scr_final), t4_full [G, 432] int8, t4_b2 [G, 216]
+    int8)."""
     dev = ring.device
     B = ring.shape[0]
     G = g_rows
@@ -156,6 +161,12 @@ def _fused_chunk_body(ring, chunk, end_rel: int, rebase: int, st0, bs0,
     scr_ext = scr_ext.scatter(0, torch.where(segend, gcar, B), inits)
     scr_final = scr_ext[:B]
 
+    # ---- traffic payloads: type-4 bits of SCH/F (one 432-bit block) and
+    # of an NDB's second half (its own fresh keystream), for the dumps
+    _, b1, b2 = split_norm_burst(flat)
+    t4_full = scramble.scramb_bits(inits, torch.cat([b1, b2], dim=1))
+    t4_b2 = scramble.scramb_bits(inits, b2)
+
     # ---- kind-compacted FEC decode + per-kind section packing
     if soft:
         soft_rows = win.reshape(-1)[pos].to(torch.float32)
@@ -194,7 +205,7 @@ def _fused_chunk_body(ring, chunk, end_rel: int, rebase: int, st0, bs0,
     bundle = torch.cat([row.view(torch.int8).reshape(G * ROW_BYTES),
                         side.view(torch.int8).reshape(B * 4 * SIDE_I32)])
     new_ring = win[:, end_rel - RING_PAD:end_rel].contiguous()
-    return bundle, new_ring, (st, bs, nb, nfs, scr_final)
+    return bundle, new_ring, (st, bs, nb, nfs, scr_final), t4_full, t4_b2
 
 
 def _unpack(packed, lc_pad: int, soft: bool = False):
@@ -290,8 +301,11 @@ def _absorb(ring, packed, lc: int, lc_pad: int, soft: bool = False):
 class ChunkHandle:
     """A dispatched chunk whose bundle has not been fetched. Holds the
     re-dispatch closure so a budget overflow can re-run it; the handle
-    is updated in place on a re-run."""
+    is updated in place on a re-run, so that rows gathered from t4_full
+    and t4_b2 by the collected slot_refs are the rows those refs index."""
     bundle: torch.Tensor       # device [G*ROW_BYTES + B*32] int8
+    t4_full: torch.Tensor      # device [G, 432] int8
+    t4_b2: torch.Tensor        # device [G, 216] int8
     g_rows: int
     inputs: tuple | None = None   # (dispatch fn(scr, g_rows), scr it ran with)
     maxs: int = 0                 # sufficient per-carrier budget
@@ -423,13 +437,13 @@ class FastChunkPipeline:
         dispatch = make_fn(s.ring, new_base - s.carry_base,
                            end_abs - new_base, s.fed - new_base,
                            st, bs, nb, nfs)
-        bundle, ring, carry = dispatch(scr, G)
+        bundle, ring, carry, t4f, t4b = dispatch(scr, G)
         s.ring = ring
         s.carry = carry
         s.carry_base = new_base
         s.end = end_abs
         s.fed += steps * self.feed
-        h = ChunkHandle(bundle, G, (dispatch, scr), maxs)
+        h = ChunkHandle(bundle, t4f, t4b, G, (dispatch, scr), maxs)
         self._outstanding.append(h)
         return h
 
@@ -502,8 +516,8 @@ class FastChunkPipeline:
         if scr_override is not None:
             scr = scr_override
             h.inputs = (fn, scr)
-        bundle, _, carry = fn(scr, g_rows)
-        h.bundle, h.g_rows = bundle, g_rows
+        bundle, _, carry, t4f, t4b = fn(scr, g_rows)
+        h.bundle, h.t4_full, h.t4_b2, h.g_rows = bundle, t4f, t4b, g_rows
         return carry
 
     def _overflow_rerun(self, h: ChunkHandle) -> None:

@@ -1,1 +1,1 @@
-"""Wideband ingest formats."""
+"""Wideband ingest formats, GSMTAP and TUN egress."""

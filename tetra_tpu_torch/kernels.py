@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-All sources in `csrc/*.cu` compile with nvcc into ONE shared library
-with a plain C interface (no PyTorch headers: a few seconds per build),
-loaded with ctypes. The library lands in `build/` at the repository
-root (gitignored), named by a hash of the sources and flags, so an edit
+Each source in `csrc/*.cu` compiles with its own nvcc process, all
+started together, and the objects link into ONE shared library with a
+plain C interface (no PyTorch headers: seconds per build), loaded with
+ctypes. The library lands in `build/` at the repository root
+(gitignored), named by a hash of the sources and flags, so an edit
 rebuilds it and an unchanged tree reuses it.
 
 Every exported launcher takes raw device pointers and the CUDA stream
@@ -27,7 +28,7 @@ __all__ = ["lib", "check", "stream_ptr", "build"]
 _CSRC = pathlib.Path(__file__).parent / "csrc"
 _BUILD = pathlib.Path(__file__).resolve().parent.parent / "build" / "kernels"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+          "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +38,7 @@ _SIGNATURES = {
                              _I, _P, _P, _I, _I, _P],
     "tt_viterbi_segmented": [_P, _P, _I, _P, _I, _I, _I, _I, _P, _I, _I,
                              _P],
+    "tt_viterbi_decode": [_P, _P, _I, _P, _I, _I, _P],
     "tt_pfb_wola": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "tt_resample_rows": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _I,
                          _P],
@@ -58,7 +60,8 @@ def _nvcc() -> str:
 
 def build() -> pathlib.Path:
     """Compile csrc/*.cu into build/kernels/libtetra_kernels-<hash>.so
-    unless that file already exists; returns its path."""
+    unless that file already exists (one nvcc per source, in parallel,
+    then one link); returns its path."""
     srcs = sorted(_CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(_FLAGS).encode())
     for s in srcs + sorted(_CSRC.glob("*.cuh")):
@@ -68,11 +71,26 @@ def build() -> pathlib.Path:
     if out.exists():
         return out
     _BUILD.mkdir(parents=True, exist_ok=True)
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [_BUILD / f"{s.stem}-{tag}.o" for s in srcs]
+    procs = [subprocess.Popen([_nvcc(), *_FLAGS, "-c", "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for s, o in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [f"{s.name}:\n{log}" for s, p, log in zip(srcs, procs, logs)
+              if p.returncode != 0]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + res.stdout + res.stderr)
+    if not failed:
+        res = subprocess.run([_nvcc(), "-shared", "-gencode",
+                              "arch=compute_90a,code=sm_90a", "-o", str(tmp),
+                              *map(str, objs)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            failed.append("link:\n" + res.stdout + res.stderr)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, out)
     return out
 

@@ -1,2 +1,2 @@
-"""FEC operators: CRC16, scrambling, puncture/interleave maps, Viterbi,
-and the assembled-decode kernel K1."""
+"""FEC operators: CRC16, scrambling, RCPC puncture maps, interleave maps,
+Viterbi (kernels K1, K4, K6) and the TCH/S speech chain (acelp)."""

@@ -6,8 +6,8 @@ with the ACS of libosmocore's osmo_conv_decode. Soft convention: positive
 = bit 0, negative = bit 1, 0 = erasure.
 
 This is the plain reference the CUDA kernels of ops.viterbi_assembled
-(K1) and ops.viterbi_segmented (K4) are held against: a Python loop over
-time, vectorised over the batch. Integer soft input (K1's int8 signs)
+(K1), ops.viterbi_segmented (K4) and ops.viterbi_decode (K6) are held
+against: a Python loop over time, vectorised over the batch. Integer soft input (K1's int8 signs)
 runs with int32 path metrics; float input (K4's soft amplitudes) runs
 with float32 metrics and -1e6 initial metrics, like the JAX scan
 (tetra_tpu.lmac.fused.decode_segmented). Tie rules are those of the JAX
@@ -21,9 +21,11 @@ import functools
 import numpy as np
 import torch
 
-from tetra_tpu_torch.constants import CONV_GENERATORS_CCH
+from tetra_tpu_torch.constants import (CONV_GENERATORS_CCH,
+                                       CONV_GENERATORS_TCH)
 
-__all__ = ["trellis_signs", "decode_segmented", "argmax_low"]
+__all__ = ["trellis_signs", "decode_segmented", "argmax_low", "decode",
+           "decode_auto", "decode_cch", "decode_tch", "hard_to_soft"]
 
 _NEG = -(1 << 27)    # excludes invalid paths; metrics stay << 2^31
 _NEG_F32 = -1e6      # float metrics: tetra_tpu.lmac.fused._NEG
@@ -113,3 +115,45 @@ def decode_segmented(soft: torch.Tensor, rmask: torch.Tensor, n_sym: int,
         if t in restart:
             state = torch.where(restart[t], bstate[t], state)
     return bits
+
+
+def hard_to_soft(bits: torch.Tensor, erasure_marker: int = 255) -> torch.Tensor:
+    """Hard/erasure-marked bits -> float32 soft values (viterbi.c:6-25)."""
+    b = bits.to(torch.int32)
+    return torch.where(b == erasure_marker, 0,
+                       torch.where(b == 0, 127, -127)).to(torch.float32)
+
+
+def decode(soft: torch.Tensor, n_sym: int,
+           generators=CONV_GENERATORS_CCH) -> torch.Tensor:
+    """Unsegmented decode (tetra_tpu.ops.viterbi.decode): soft mother
+    bits [..., >= n_sym*N], cast to float32 -> bits [..., n_sym] int8.
+    Starts from the all-zero state and ends in the best state."""
+    batch = soft.shape[:-1]
+    flat = soft.reshape(-1, soft.shape[-1]).to(torch.float32)
+    rmask = torch.zeros((flat.shape[0], 0), dtype=torch.int8,
+                        device=soft.device)
+    out = decode_segmented(flat, rmask, n_sym, (), generators)
+    return out.reshape(*batch, n_sym)
+
+
+def decode_auto(soft: torch.Tensor, n_sym: int,
+                generators=CONV_GENERATORS_CCH) -> torch.Tensor:
+    """Device-dispatching decode through K6's wrapper
+    (ops.viterbi_decode): the plain scan for CPU tensors, the kernel for
+    CUDA tensors. The input is cast to a contiguous float32 batch first,
+    as the TPU kernel casts it."""
+    from tetra_tpu_torch.ops.viterbi_decode import decode_k6
+    batch = soft.shape[:-1]
+    flat = soft.reshape(-1, soft.shape[-1]).to(torch.float32).contiguous()
+    return decode_k6(flat, n_sym, generators).reshape(*batch, n_sym)
+
+
+def decode_cch(soft: torch.Tensor, n_sym: int) -> torch.Tensor:
+    """Control-channel code (viterbi_cch.c)."""
+    return decode_auto(soft, n_sym, CONV_GENERATORS_CCH)
+
+
+def decode_tch(soft: torch.Tensor, n_sym: int) -> torch.Tensor:
+    """Traffic/speech code (viterbi_tch.c)."""
+    return decode_auto(soft, n_sym, CONV_GENERATORS_TCH)

@@ -23,7 +23,7 @@ from tetra_tpu_torch.constants import CONV_GENERATORS_CCH
 from tetra_tpu_torch import kernels
 from tetra_tpu_torch.ops.viterbi import decode_segmented, trellis_signs
 
-__all__ = ["decode_segmented_k4", "sign_patterns", "MAX_SYM"]
+__all__ = ["decode_segmented_k4", "sign_patterns", "patterns_on", "MAX_SYM"]
 
 MAX_SYM = 288          # decision words per row the kernel keeps
 
@@ -37,6 +37,12 @@ def sign_patterns(generators) -> np.ndarray:
     bits = (signs < 0).astype(np.int32)
     weights = 1 << np.arange(signs.shape[-1], dtype=np.int32)
     return (bits * weights).sum(-1).reshape(32).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=8)
+def patterns_on(generators, device: torch.device) -> torch.Tensor:
+    """sign_patterns(generators) as int32 on `device`, copied once."""
+    return torch.as_tensor(sign_patterns(generators), device=device)
 
 
 def decode_segmented_k4(soft, rmask, n_sym: int, boundaries: tuple = (),
@@ -65,7 +71,7 @@ def decode_segmented_k4(soft, rmask, n_sym: int, boundaries: tuple = (),
     # time-major [n_sym*N, B]: one thread per row then reads a warp's
     # 32 rows from 32 consecutive floats
     soft_tm = soft[:, :n_sym * n].t().contiguous()
-    pat = torch.as_tensor(sign_patterns(gens), device=soft.device)
+    pat = patterns_on(gens, soft.device)
     bnd = list(boundaries) + [-1] * (3 - nb)
     bits = torch.empty((B, n_sym), dtype=torch.int8, device=soft.device)
     rc = kernels.lib().tt_viterbi_segmented(

@@ -3,8 +3,10 @@
 `data/prod_mixed.npz` (written by tools/make_torch_fixture.py) holds the
 two padded 16-frame protocol-mix rows of tools/bench_mc_e2e.mixed_batch
 (plain and TEA1-encrypted) before the per-carrier circular roll, the
-noise-window length the rolls are confined to, and the JAX package's
-recorded decode counts for the 1024-carrier production stage. From them
+noise-window length the rolls are confined to, the JAX package's
+recorded decode counts for the 1024-carrier production stage, and the
+traffic dump and voice files its bits path writes for one plain and one
+encrypted carrier (`expected_traffic`). From them
 this module rebuilds the bench's companded wideband capture with numpy
 copies of the fixture chain: safe_rolls -> dqpsk.modulate ->
 channelizer.synthesize_wideband_fft -> stream.quantize_iq4c.
@@ -32,7 +34,8 @@ from tetra_tpu_torch.phy.dqpsk import modulate
 
 __all__ = ["DATA_PATH", "SNR8_PATH", "KEYSTORE", "BITRATE", "load",
            "load_snr8", "safe_rolls", "mixed_bits", "wideband_capture",
-           "snr8_bits", "snr8_capture", "keystore_file", "run_receiver"]
+           "snr8_bits", "snr8_capture", "keystore_file", "run_receiver",
+           "expected_traffic", "read_tree"]
 
 DATA_PATH = pathlib.Path(__file__).parent / "data" / "prod_mixed.npz"
 SNR8_PATH = pathlib.Path(__file__).parent / "data" / "snr8_clean.npz"
@@ -57,6 +60,27 @@ def load(path=DATA_PATH) -> dict:
     d["plain"] = np.unpackbits(d["plain_packed"])[:L]
     d["enc"] = np.unpackbits(d["enc_packed"])[:L]
     return d
+
+
+def expected_traffic(fx: dict) -> dict:
+    """The fixture's traffic outputs: {'plain': {file name: bytes},
+    'enc': {...}}, the files every plain (encrypted) carrier's dump
+    directory must hold."""
+    out = {"plain": {}, "enc": {}}
+    ends = np.cumsum(fx["traffic_sizes"])
+    blob = fx["traffic_bytes"].tobytes()
+    for name, end, size in zip(fx["traffic_names"], ends,
+                               fx["traffic_sizes"]):
+        tag, fname = str(name).split("/", 1)
+        out[tag][fname] = blob[end - size:end]
+    return out
+
+
+def read_tree(root) -> dict:
+    """Every file under root: {relative path: bytes}, sorted by path."""
+    root = pathlib.Path(root)
+    return {str(p.relative_to(root)): p.read_bytes()
+            for p in sorted(root.rglob("*")) if p.is_file()}
 
 
 def load_snr8(path=SNR8_PATH) -> dict:
@@ -147,11 +171,14 @@ def keystore_file():
 
 
 def run_receiver(packed: np.ndarray, n_car: int, ks_path: str | None,
-                 device, n_chunks: int = 4, demod: str = "hard"):
+                 device, n_chunks: int = 4, demod: str = "hard",
+                 **egress):
     """One pass of the production path: a fresh MultiCarrierReceiver
-    (carrier c on PFB channel c of n_car, native plane, keystore, demod)
-    fed `packed` in n_chunks process_iq4c calls. Returns (receiver, wall
-    seconds; on a card the clock stops after a synchronize)."""
+    (carrier c on PFB channel c of n_car, native plane, keystore, demod,
+    and the egress options dumpdir, decode_voice, gsmtap_host and
+    tl_sdu_sink as given) fed `packed` in n_chunks process_iq4c calls.
+    Returns (receiver, wall seconds; on a card the clock stops after a
+    synchronize)."""
     from tetra_tpu_torch.rx_multi import MultiCarrierReceiver
     dev = torch.device(device)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -160,7 +187,8 @@ def run_receiver(packed: np.ndarray, n_car: int, ks_path: str | None,
     t0 = time.perf_counter()
     mrx = MultiCarrierReceiver(
         [], fs=25_000.0 * n_car, pfb_channels=np.arange(n_car),
-        n_chan=n_car, keystore_path=ks_path, demod=demod, device=dev)
+        n_chan=n_car, keystore_path=ks_path, demod=demod, device=dev,
+        **egress)
     for k in range(n_chunks):
         mrx.process_iq4c(packed[cuts[k]:cuts[k + 1]],
                          final=k == n_chunks - 1)

@@ -5,26 +5,38 @@ Wideband companded IQ (`process_iq4c`) or complex samples (`process_iq`)
 in, per-carrier decode stats and native control-plane events out. Each
 chunk runs as one fused chunk program on the device (fastpath.submit_iq)
 and one C++ walk of the upper MAC / LLC / MLE / crypto
-(tetra_tpu.umac.native_exec). Chunks are pipelined: up to
-`pipeline_depth` dispatched chunks wait before the oldest is fetched
-and walked; a final=True call drains the queue.
+(umac.native_exec). Chunks are pipelined: up to `pipeline_depth`
+dispatched chunks wait before the oldest is fetched and walked; a
+final=True call drains the queue.
+
+Egress, as the JAX package's native plane has it: GSMTAP packets of
+every CRC-OK block (`gsmtap_host`), every TL-SDU to `tl_sdu_sink(carrier,
+pdisc, pdut, sdu_bits)`, defrag-reassembled SNDCP IP packets to tun0,
+and with `dumpdir` the traffic dumps of each carrier under
+`dumpdir/carrier<i>` (with `decode_voice`, the TCH/S voice frames too,
+decoded on the card by kernel K6).
 
 demod="soft" is the degraded-signal mode: int8 soft demod, a sync scan
 that accepts 2 training-sequence bit errors, and the soft Viterbi
 (kernel K4) over the same kind-compacted FEC.
 
 Not ported (NotImplementedError): the mixer-bank channelizer (no
-pfb_channels), the Python control plane, mesh sharding, GSMTAP export,
-TL-SDU sinks, traffic dumps and voice decode.
+pfb_channels), the Python control plane and mesh sharding.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from tetra_tpu_torch.device import resolve_device
 from tetra_tpu_torch.fastpath import FastChunkPipeline
-from tetra_tpu_torch.rx import CarrierState, RxStats
+from tetra_tpu_torch.rx import CarrierState, RxStats, append_files, \
+    dump_blocks, voice_frames
+from tetra_tpu_torch.tdma import TdmaTime
+from tetra_tpu_torch.umac.native_exec import EV, NativeControlPlane
+from tetra_tpu_torch.utils.bits import pack_bits
 
 __all__ = ["MultiCarrierReceiver", "pfb_demod_bits_len"]
 
@@ -62,11 +74,6 @@ class MultiCarrierReceiver:
             raise ValueError(f"demod must be 'hard' or 'soft', got {demod!r}")
         if mesh is not None:
             raise NotImplementedError("mesh sharding is not ported")
-        if gsmtap_host or dumpdir or decode_voice or tl_sdu_sink is not None:
-            raise NotImplementedError("GSMTAP export, traffic dumps, voice "
-                                      "decode and TL-SDU sinks are not "
-                                      "ported")
-        from tetra_tpu_torch.umac.native_exec import NativeControlPlane
         self.device = resolve_device(device)
         self.fs = float(fs)
         self.sps = sps
@@ -74,11 +81,23 @@ class MultiCarrierReceiver:
         self.n_chan = (n_chan if n_chan is not None
                        else int(round(fs / 25_000.0)))
         n_carriers = len(self.pfb_channels)
-        self.carriers = [CarrierState() for _ in range(n_carriers)]
+        self.carriers = [CarrierState(
+            dumpdir=f"{dumpdir}/carrier{i}" if dumpdir else None)
+            for i in range(n_carriers)]
+        for c in self.carriers:
+            if c.dumpdir:
+                os.makedirs(c.dumpdir, exist_ok=True)
+        self.decode_voice = decode_voice
+        self.tl_sdu_sink = tl_sdu_sink
         self.native_cp = NativeControlPlane(n_carriers)
         if keystore_path:
             from tetra_tpu_torch.crypto.crypto import load_keystore
             self.native_cp.set_keys(load_keystore(keystore_path))
+        self.gsmtap = None
+        if gsmtap_host:
+            from tetra_tpu_torch.io.gsmtap import GsmtapSink
+            self.gsmtap = GsmtapSink(gsmtap_host)
+            self.native_cp.set_gsmtap(True)
         self.native_events = []
         self._fast = FastChunkPipeline(n_carriers, self.device,
                                        soft=demod == "soft")
@@ -170,11 +189,95 @@ class MultiCarrierReceiver:
             self._collect_walk(self._pending.pop(0))
         return [c.stats for c in self.carriers]
 
+    # walk2 packed-row geometry (rx._PACK_* layout; see
+    # native/umac_exec.cpp ROW_STRIDE constants)
+    _GT_LEN_A = {0: 60, 1: 268, 2: 124}
+    _GT_LEN_B = {0: 124, 1: 0, 2: 124}
+
+    def _export_gsmtap(self, evd, d):
+        """EV.GSMTAP events (one per CRC-OK TMV dispatch of the C++ walk;
+        reference hook tetra_upper_mac.c:483-488) -> UDP packets: the
+        dispatched block's bits from the payload row, its lchan, TDMA
+        time and timeslot."""
+        for i in np.flatnonzero(evd["kind"] == EV.GSMTAP):
+            row = int(evd["a"][i])
+            lchan = int(evd["b"][i])
+            c = int(evd["c"][i])
+            off = int(evd["d"][i])
+            blk = (c >> 20) & 0xF
+            t = TdmaTime(tn=(c >> 16) & 0xF, fn=(c >> 8) & 0xFF,
+                         mn=c & 0xFF)
+            kind = int(d["kind"][row])
+            # AACH rides the BBK bits; blk_num 2 is the second half-slot
+            # block; everything else (SB1, SCH/F, NDB1) is block A
+            if lchan == 8:
+                sec = d["payload"][row][392:406]
+            elif blk == 2:
+                sec = d["payload"][row][268: 268 + self._GT_LEN_B[kind]]
+            else:
+                sec = d["payload"][row][: self._GT_LEN_A[kind]]
+            self.gsmtap.send(t, lchan, t.tn - 1, sec[off:])
+
+    def _payload_egress(self, evd, arena):
+        """TL-SDUs from the walk's payload arena: defrag-reassembled
+        SNDCP IP payloads to tun0 (reference tetra_llc.c:93-101), every
+        TL-SDU to the sink when one is registered."""
+        dd = evd["d"]
+        tl = (evd["kind"] == EV.TLSDU) & (dd >= 0)
+        if self.tl_sdu_sink is None:
+            tl &= (dd & 1) == 1
+        for i in np.flatnonzero(tl):
+            ref = int(dd[i])
+            nbits = int(evd["c"][i])
+            car = int(evd["carrier"][i])
+            sdu = arena[ref >> 1: (ref >> 1) + nbits]
+            if (ref & 1) and nbits > 19:
+                payload = sdu[19:]      # strip the SNDCP header bits
+                self.carriers[car].ip_out(
+                    pack_bits(payload[: (len(payload) // 8) * 8]))
+            if self.tl_sdu_sink is not None:
+                self.tl_sdu_sink(car, int(evd["a"][i]), int(evd["b"][i]),
+                                 sdu)
+
+    def _dump_traffic(self, h, evd, tr, arena):
+        """The chunk's EV.TRAFFIC slots (a = slot_ref, b = 1 for an NDB
+        second half, c = usage, d = (voice keystream arena ref + 1) << 8
+        | tn): one device gather and one voice decode per row length
+        from the chunk's traffic payloads, then the appends in event
+        order."""
+        n = len(tr)
+        half = evd["b"][tr] == 1
+        blocks = np.empty((n, 690), np.int16)
+        cod = np.empty((n, 35), np.uint8)
+        ks = np.zeros((n, 274), np.uint8)
+        vref = evd["d"][tr] >> 8
+        if self.decode_voice and (vref > 0).any():
+            ks[vref > 0] = arena[(vref[vref > 0] - 1)[:, None]
+                                 + np.arange(274)]
+        for src, pos in ((h.t4_full, np.flatnonzero(~half)),
+                         (h.t4_b2, np.flatnonzero(half))):
+            if not len(pos):
+                continue
+            rows = src[torch.as_tensor(evd["a"][tr[pos]], device=self.device)]
+            blocks[pos] = dump_blocks(rows.cpu().numpy())
+            if self.decode_voice:
+                cod[pos] = voice_frames(rows, ks[pos])
+        parts = {}
+        for j, i in enumerate(tr):
+            d = self.carriers[evd["carrier"][i]].dumpdir
+            ut = f"{evd['c'][i]}_{(evd['d'][i] & 0xFF) - 1}"
+            add = [(f"traffic_{ut}.out", blocks[j].tobytes()),
+                   (f"traffic_{ut}.txt", b"0\n")]   # native plane: SSI 0
+            if self.decode_voice:
+                add.append((f"voice_{ut}.cod", cod[j].tobytes()))
+            for name, data in add:
+                parts.setdefault(os.path.join(d, name), []).append(data)
+        append_files(parts)
+
     def _collect_walk(self, h):
         """Fetch one chunk and run the native control plane: numpy record
         assembly + ONE C++ walk that advances the TDMA clocks and
-        applies SYNC side effects."""
-        from tetra_tpu_torch.umac.native_exec import EV
+        applies SYNC side effects; then the chunk's egress."""
         d = self._fast.collect(h)
         n = len(d["carrier"])
         recs = np.column_stack([
@@ -210,7 +313,12 @@ class MultiCarrierReceiver:
                                               int(states[c, 4]),
                                               int(states[c, 5]))
             cs.scramb_init = int(scr[i])
-        tl = (kinds == EV.TLSDU) & (evd["d"] >= 0) & ((evd["d"] & 1) == 1)
-        if ((evd["c"][tl] > 19).any()):
-            raise NotImplementedError("TUN egress of reassembled SNDCP "
-                                      "packets is not ported")
+
+        if self.gsmtap is not None:
+            self._export_gsmtap(evd, d)
+        arena = evd.get("payload")
+        if arena is not None and len(arena):
+            self._payload_egress(evd, arena)
+        tr = np.flatnonzero(kinds == EV.TRAFFIC)
+        if len(tr) and self.carriers and self.carriers[0].dumpdir:
+            self._dump_traffic(h, evd, tr, arena)

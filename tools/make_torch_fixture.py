@@ -13,7 +13,12 @@ the pre-demodulated bits path's counts on the same bits, stored as a
 per-carrier (bursts, crc_ok, crc_wrong) on the 1024 rolled rows,
 computed here in batches of 128 carriers (carriers are independent
 receivers on that path); their totals must equal the recorded bits-path
-counts.
+counts. And it stores the traffic outputs of the JAX bits path with
+dumpdir and decode_voice=True on the first (plain) and the last
+(TEA1-encrypted) of the 1024 rolled rows: every file name and its
+bytes, per row type. The rolls keep each carrier's slots inside its
+stream, so every plain carrier writes the plain row's files and every
+encrypted carrier the encrypted row's.
 
 snr8_clean.npz holds the padded clean 16-frame SYNC/SCH_F row of
 bench_mc_e2e.run_snr8 (bit-packed), its n_tail, the SNR, and the JAX
@@ -32,6 +37,7 @@ the argument picks one file (default: all):
 
     JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [prod|snr8|steady]
 """
+import contextlib
 import os
 import pathlib
 import sys
@@ -59,6 +65,43 @@ REF_WINDOW = {
     "frag_ends": (4_094, 4_096),
     "n_encrypted": (102, 102),
 }
+
+
+@contextlib.contextmanager
+def jax_short_row_dumps():
+    """tetra_tpu.rx.TetraReceiver._dump_traffic raises ValueError on an
+    NDB slot's 216-bit traffic row: its four spans assume 432 bits.
+    While this is active such a row is dumped as tetra_tpu_torch.rx
+    dumps it: the bits it has as -127/127, the positions it lacks 0
+    (erasure), the SSI line, and its voice frames from the JAX package's
+    own _decode_voice_slot (which decodes the missing positions as
+    erasures). Rows of 432 bits take the unchanged JAX code."""
+    from tetra_tpu.rx import TetraReceiver
+    orig = TetraReceiver._dump_traffic
+
+    def dump(self, type4, usage=None, tsn=None, ssi=None, voice_ks=None):
+        if len(type4) >= 432 or not self.dumpdir:
+            return orig(self, type4, usage, tsn, ssi, voice_ks)
+        block = np.zeros(690, dtype=np.int16)
+        for i in range(6):
+            block[115 * i] = 0x6B21 + i
+        for dst, src, n in ((1, 0, 114), (116, 114, 114), (231, 228, 114),
+                            (346, 342, 90)):
+            seg = np.asarray(type4[src:src + n])
+            block[dst:dst + len(seg)] = np.where(seg != 0, -127, 127)
+        base = os.path.join(self.dumpdir, f"traffic_{usage}_{tsn}")
+        with open(base + ".out", "ab") as f:
+            f.write(block.tobytes())
+        with open(base + ".txt", "a") as f:
+            f.write(f"{ssi}\n")
+        if self.decode_voice:
+            self._decode_voice_slot(type4, usage, tsn, voice_ks)
+
+    TetraReceiver._dump_traffic = dump
+    try:
+        yield
+    finally:
+        TetraReceiver._dump_traffic = orig
 
 
 def rows(seed: int = 0):
@@ -107,6 +150,37 @@ def bits_path_stats(bits, batch: int = 128):
             tot["tl_sdus"] += int((kinds == EV.TLSDU).sum())
             tot["frag_ends"] += int((kinds == EV.FRAG_END).sum())
     return stats, tot
+
+
+def traffic_outputs(plain_row, enc_row) -> dict:
+    """The JAX bits path (native plane, keystore, 4 chunks) with dumpdir
+    and decode_voice=True on one plain and one encrypted row: the npz
+    arrays traffic_names [k] ('plain/<file>' or 'enc/<file>'),
+    traffic_sizes [k] and traffic_bytes (the files' bytes, concatenated
+    in name order)."""
+    import tempfile
+    from tetra_tpu.rx_multi import MultiCarrierReceiver
+    bits = np.stack([plain_row, enc_row])
+    cuts = np.linspace(0, bits.shape[1], 5).astype(int)
+    names, blobs = [], []
+    with tempfile.TemporaryDirectory() as tmp, jax_short_row_dumps():
+        ks = pathlib.Path(tmp) / "keys.txt"
+        ks.write_text(B.KEYSTORE)
+        dd = pathlib.Path(tmp) / "dump"
+        mc = MultiCarrierReceiver(np.zeros(2), fs=50_000.0,
+                                  control_plane="native",
+                                  keystore_path=str(ks), dumpdir=str(dd),
+                                  decode_voice=True)
+        for k in range(4):
+            mc.process_bits(bits[:, cuts[k]:cuts[k + 1]], final=k == 3)
+        for c, tag in enumerate(("plain", "enc")):
+            for f in sorted((dd / f"carrier{c}").iterdir()):
+                names.append(f"{tag}/{f.name}")
+                blobs.append(f.read_bytes())
+    assert any(n.endswith(".cod") for n in names)
+    return {"traffic_names": np.asarray(names),
+            "traffic_sizes": np.asarray([len(b) for b in blobs], np.int64),
+            "traffic_bytes": np.frombuffer(b"".join(blobs), np.uint8)}
 
 
 SNR8 = {"snr_db": 8.0, "snr8_crc_ok": 74_343, "snr8_crc_err": 410,
@@ -214,12 +288,13 @@ def main(out=ROOT / "tetra_tpu_torch" / "data" / "prod_mixed.npz"):
         assert v == REF_WINDOW[k][1], (k, v, REF_WINDOW[k])
     assert n_enc == REF_WINDOW["n_encrypted"][0]
     refs = {f"ref_{k}": np.asarray(v, np.int64) for k, v in REF_WINDOW.items()}
+    traffic = traffic_outputs(got[0], got[-1])
     out.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(out, plain_packed=np.packbits(plain),
                         enc_packed=np.packbits(enc),
                         length=np.int64(len(plain)), n_tail=np.int64(n_tail),
                         n_frames=np.int64(N_FRAMES),
-                        jax_bits_stats=stats, **refs)
+                        jax_bits_stats=stats, **refs, **traffic)
     print(f"wrote {out} ({out.stat().st_size} bytes)")
 
 

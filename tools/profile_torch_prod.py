@@ -3,6 +3,8 @@
 Runs the 1024-carrier production capture (tetra_tpu_torch.prod_fixture,
 4 chunks) through tetra_tpu_torch's MultiCarrierReceiver three times
 (with --soft: the 8 dB snr8 capture through demod="soft"; with
+--voice: the production capture with traffic dumps into a temporary
+directory and voice decode (K6), beside a pass without them; with
 --steady: the steady fixture at 4096 carriers x 64 slots through
 lmac.steady.locked_step_ri(fast="pallas"), input already on the card,
 for decoders=("fused",) and the default three):
@@ -15,7 +17,7 @@ for decoders=("fused",) and the default three):
      pass's wall time.
 Prints one JSON line per result.
 
-    python3 tools/profile_torch_prod.py [--soft | --steady] [n_carriers]
+    python3 tools/profile_torch_prod.py [--soft | --voice | --steady] [n_carriers]
 """
 import collections
 import functools
@@ -23,6 +25,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
@@ -30,15 +33,22 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 import torch
 
 from tetra_tpu_torch.umac.native_exec import NativeControlPlane
-from tetra_tpu_torch import fastpath, prod_fixture
+from tetra_tpu_torch import fastpath, prod_fixture, rx_multi
 from tetra_tpu_torch.lmac import fused, pipeline
 
 N_CHUNKS = 4
 
 
-def run(packed, n_car, ks_path, demod):
-    return prod_fixture.run_receiver(packed, n_car, ks_path, "cuda",
-                                     N_CHUNKS, demod)[1]
+def run(packed, n_car, ks_path, demod, voice=False):
+    """Wall seconds of one pass (with voice: dumps into a fresh
+    temporary directory and decode_voice)."""
+    if not voice:
+        return prod_fixture.run_receiver(packed, n_car, ks_path, "cuda",
+                                         N_CHUNKS, demod)[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        return prod_fixture.run_receiver(packed, n_car, ks_path, "cuda",
+                                         N_CHUNKS, demod, dumpdir=tmp,
+                                         decode_voice=True)[1]
 
 
 def timed(acc, name, fn):
@@ -152,7 +162,8 @@ def main():
     args = sys.argv[1:]
     demod = "soft" if "--soft" in args else "hard"
     steady_mode = "--steady" in args
-    args = [a for a in args if a not in ("--soft", "--steady")]
+    voice = "--voice" in args
+    args = [a for a in args if a not in ("--soft", "--steady", "--voice")]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
@@ -169,8 +180,9 @@ def main():
         stream_s = bits.shape[1] / prod_fixture.BITRATE
     with prod_fixture.keystore_file() as ks_file:
         ks = ks_file if demod == "hard" else None    # snr8 is unencrypted
-        warm = run(packed, n_car, ks, demod)
-        plain_wall = run(packed, n_car, ks, demod)
+        warm = run(packed, n_car, ks, demod, voice)
+        plain_wall = run(packed, n_car, ks, demod, voice)
+        no_dump_wall = run(packed, n_car, ks, demod) if voice else None
 
         acc = collections.defaultdict(float)
         patches = [
@@ -184,11 +196,17 @@ def main():
              "host bundle parse"),
             (NativeControlPlane, "walk2", "host native walk"),
         ]
+        if voice:
+            patches += [
+                (rx_multi, "voice_frames",
+                 "voice decode (K6, reorder, XOR, pack)"),
+                (rx_multi, "dump_blocks", "host dump blocks"),
+                (rx_multi, "append_files", "host dump file appends")]
         saved = [(m, a, getattr(m, a)) for m, a, _ in patches]
         for m, a, name in patches:
             setattr(m, a, timed(acc, name, getattr(m, a)))
         try:
-            inst_wall = run(packed, n_car, ks, demod)
+            inst_wall = run(packed, n_car, ks, demod, voice)
         finally:
             for m, a, fn in saved:
                 setattr(m, a, fn)
@@ -196,13 +214,14 @@ def main():
         layers["rest (compaction, fill, packing, transfers, Python)"] = \
             inst_wall - sum(acc.values())
         print(json.dumps({"card": card, "carriers": n_car, "demod": demod,
-                          "warm_s": warm, "wall_s": plain_wall,
+                          "voice": voice, "warm_s": warm, "wall_s": plain_wall,
+                          "wall_s_without_dumps": no_dump_wall,
                           "realtime_carriers": n_car * stream_s / plain_wall,
                           "instrumented_wall_s": inst_wall,
                           "layers_s": layers}), flush=True)
 
         print(json.dumps(device_profile(
-            lambda: run(packed, n_car, ks, demod), card)), flush=True)
+            lambda: run(packed, n_car, ks, demod, voice), card)), flush=True)
 
 
 if __name__ == "__main__":
