@@ -22,7 +22,7 @@ Phases (one JSON line each):
               the card and on the CPU (plain versions): identical
               per-carrier stats and native event arrays.
      voice_small  the same capture with traffic dumps, voice decode,
-              GSMTAP (to a local UDP sink on the GSMTAP port) and a
+              GSMTAP (to a local UDP sink on an ephemeral port) and a
               TL-SDU sink, on the card and on the CPU: every file,
               packet and sink call identical.
   4. prod     the 1024-carrier production capture (25 kHz spacing,
@@ -37,7 +37,8 @@ Phases (one JSON line each):
               path's must hold the fixture's files for its row (plain
               or encrypted), up to the raw traffic bits the wideband
               demod gets wrong (<= 1e-5 of them; a voice frame may
-              differ only in such a slot).
+              differ only in such a slot, and there it must equal the
+              CPU plain chain's decode of the card's own bits).
   5. soft_small  the 8-carrier snr8 capture through the soft receiver
               (demod="soft") on the card and on the CPU: identical
               stats and events.
@@ -92,8 +93,13 @@ CLEAN_CRC_OK = 81_920
 STEADY_CAR = 4096   # bench stage 3: 4096 carriers x 64 slots
 ALL3 = ("sync", "schf", "ndb")
 HBM_BPS = 3.35e12   # H100 SXM device memory rate (bytes/s)
-F32_OPS = 67e12     # H100 SXM f32 rate outside the tensor cores (op/s)
-GSMTAP_PORT = 4729
+# H100 SXM peaks outside the tensor cores (data sheet: 67 TFLOP/s f32,
+# an FMA counted as 2): multiply-adds at F32_FLOPS; f32 adds, compares
+# and selects at one per lane and clock; int32 on 64 lanes per SM, half
+# the f32 lanes
+F32_FLOPS = 67e12
+F32_OPS = F32_FLOPS / 2
+INT32_OPS = F32_FLOPS / 4
 # raw type-4 bits of the voice pass that may differ from the JAX bits
 # path's: the wideband demod's bit errors on this clean capture (1.1e-6
 # measured on an H100 80GB HBM3 at 700 W); traffic bits carry no CRC
@@ -112,22 +118,22 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(nbytes: float, ops: float) -> dict:
+def bound(nbytes: float, ops: float, peak: float) -> dict:
     """The least time the card could take: the larger of the bytes the
     function must move (inputs read once, outputs written once) over
-    the memory rate and its operations over the f32 / integer ALU rate
-    (none of these kernels uses the tensor cores)."""
-    tb, to = nbytes / HBM_BPS, ops / F32_OPS
+    the memory rate and its operations over `peak`, the rate of their
+    type (none of these kernels uses the tensor cores)."""
+    tb, to = nbytes / HBM_BPS, ops / peak
     return {"bound_ms": max(tb, to) * 1e3,
             "bound_by": "bytes" if tb >= to else "operations",
-            "bound_bytes": nbytes, "bound_ops": ops}
+            "bound_bytes": nbytes, "bound_ops": ops, "bound_peak": peak}
 
 
 def viterbi_ops(rows: int, n_sym: int, n_gen: int) -> int:
-    """Operations of a radix-2 16-state decode: per row and step 32
-    branch metrics of n_gen terms, 16 add-compare-selects (4 each) and
-    a traceback step."""
-    return rows * n_sym * (32 * n_gen + 64 + 1)
+    """Operations of a radix-2 16-state decode: per row and step the
+    2^n_gen distinct branch metrics (n_gen - 1 adds each), 16
+    add-compare-selects (4 each) and a traceback step."""
+    return rows * n_sym * (2 ** n_gen * (n_gen - 1) + 64 + 1)
 
 
 def rel_err(got, want) -> tuple[float, float]:
@@ -245,7 +251,8 @@ def check_k1(dev, n_rows: int) -> dict:
         res[f"bound_{name}"] = bound(
             xi.numel() + 4 * ti.numel() + ri.numel()
             + n_rows * (code.n_sym + len(code.crc_segs)),
-            viterbi_ops(n_rows, code.n_sym, 4) + n_rows * code.n_sym)
+            viterbi_ops(n_rows, code.n_sym, 4) + n_rows * code.n_sym,
+            INT32_OPS)
         res[f"ms_{name}"] = cuda_ms(lambda: code(xi, ti, ri))
         res[f"plain_ms_{name}"] = cuda_ms(
             lambda: decode_assembled_plain(xi, code.pidx, ti, ri, code.n_sym,
@@ -290,9 +297,10 @@ def check_pfb(dev, n_chan: int, T: int, seed: int) -> dict:
     # complex row (4 ops each)
     b2 = bound(8 * T + 4 * (fe.h.numel() + fe.twc.numel() + fe.tws.numel())
                + 8 * frames * n_chan,
-               frames * n_chan * (4 * taps + 5 * math.log2(n_chan)))
+               frames * n_chan * (4 * taps + 5 * math.log2(n_chan)),
+               F32_FLOPS)
     b3 = bound(8 * frames * n_chan + 8 * n_out * n_chan,
-               n_out * n_chan * 4 * 8)
+               n_out * n_chan * 4 * 8, F32_FLOPS)
     res = {"n_chan": n_chan, "samples": T, "frames": frames,
            "k2_bound": b2, "k3_bound": b3,
            "n_out": n_out,
@@ -372,7 +380,7 @@ def check_k4(dev, n_rows: int) -> dict:
         worst = max(worst, int((bk.int() - bp.int()).abs().max()))
         res[f"bound_{name}"] = bound(
             4 * xi.shape[0] * 4 * ns + ri.numel() + xi.shape[0] * ns,
-            viterbi_ops(xi.shape[0], ns, 4))
+            viterbi_ops(xi.shape[0], ns, 4), F32_OPS)
         res[f"ms_{name}"] = cuda_ms(lambda: decode_segmented_k4(xi, ri, ns,
                                                                 bnd))
         res[f"plain_ms_{name}"] = cuda_ms(
@@ -412,7 +420,8 @@ def check_k6(dev) -> dict:
         res[f"mismatches_{name}"] = int((bk != bp).sum())
         worst = max(worst, int((bk.int() - bp.int()).abs().max()))
         res[f"bound_{name}"] = bound(4 * rows * w + rows * n_sym,
-                                     viterbi_ops(rows, n_sym, len(gens)))
+                                     viterbi_ops(rows, n_sym, len(gens)),
+                                     F32_OPS)
         res[f"ms_{name}"] = cuda_ms(lambda: decode_k6(x, n_sym, gens))
         res[f"plain_ms_{name}"] = cuda_ms(lambda: decode(x, n_sym, gens),
                                           reps=2)
@@ -479,8 +488,9 @@ def check_voice_small(ks_path: str, dev) -> dict:
         calls = []
         sink = lambda c, pd, pt, b: calls.append((c, pd, pt, b.tobytes()))
         with tempfile.TemporaryDirectory() as tmp, \
-                udp_sink.collect(GSMTAP_PORT) as udp:
+                udp_sink.collect() as udp:
             prod_fixture.run_receiver(packed, 8, ks_path, d, 2,
+                                      gsmtap_addr=udp.addr,
                                       dumpdir=tmp, decode_voice=True,
                                       gsmtap_host="127.0.0.1",
                                       tl_sdu_sink=sink)
@@ -500,17 +510,33 @@ def check_voice_small(ks_path: str, dev) -> dict:
     return res
 
 
+def voice_from_dump(block: bytes) -> bytes:
+    """One 690-int16 dump block -> its .cod frame without a keystream,
+    decoded on the CPU (the plain chain). A block whose second half is
+    erasures (0) is an NDB slot's 216-bit row."""
+    import numpy as np
+    import torch
+    from tetra_tpu_torch.rx import _dump_index, voice_frames
+    v = np.frombuffer(block, np.int16)[_dump_index(432)[0]]
+    row = (v[:432 if v[216] else 216] < 0).astype(np.int8)[None]
+    return voice_frames(torch.as_tensor(row),
+                        np.zeros((1, 274), np.uint8)).tobytes()
+
+
 def traffic_diff(got: dict, want: dict) -> dict:
     """One carrier's dump files against the fixture's: names, sizes and
     .txt must be equal; returns the .out slots with differing words
     ({usage_tsn: slots}), the count of differing words, and the .cod
-    frames that differ in a slot whose .out block is equal (a voice
-    frame may differ only where its raw type-4 bits do)."""
+    frames that are wrong. A voice frame may differ only in a slot whose
+    .out block differs, and there it must be the CPU plain chain's
+    decode of the card's own .out block, XOR the keystream the
+    fixture's frame carries (fixture frame XOR the decode of the
+    fixture's block; zero on a plain carrier)."""
     import numpy as np
     if {k: len(v) for k, v in got.items()} != \
             {k: len(v) for k, v in want.items()}:
         return {"structure": True}
-    out_slots, words, bad_cod = {}, 0, []
+    out_slots, words, bad_cod, cod_checked = {}, 0, [], 0
     for name in got:
         if name.endswith(".txt") and got[name] != want[name]:
             return {"structure": True}
@@ -520,13 +546,27 @@ def traffic_diff(got: dict, want: dict) -> dict:
             out_slots[name[8:-4]] = set(np.flatnonzero(d.any(1)).tolist())
             words += int(d.sum())
     for name in got:
-        if name.endswith(".cod") and got[name] != want[name]:
-            d = (np.frombuffer(got[name], np.uint8)
-                 != np.frombuffer(want[name], np.uint8)).reshape(-1, 35)
-            slots = set(np.flatnonzero(d.any(1)).tolist())
-            bad_cod += sorted(slots - out_slots.get(name[6:-4], set()))
+        if not name.endswith(".cod"):
+            continue
+        key, g, w = name[6:-4], got[name], want[name]
+        out = f"traffic_{key}.out"
+        for i in out_slots.get(key, ()):
+            blk = slice(1380 * i, 1380 * (i + 1))
+            fr = slice(35 * i, 35 * (i + 1))
+            ks = bytes(a ^ b for a, b in
+                       zip(w[fr], voice_from_dump(want[out][blk])))
+            exp = bytes(a ^ b for a, b in
+                        zip(voice_from_dump(got[out][blk]), ks))
+            cod_checked += 1
+            if g[fr] != exp:
+                bad_cod.append((key, i))
+        if g != w:
+            d = (np.frombuffer(g, np.uint8)
+                 != np.frombuffer(w, np.uint8)).reshape(-1, 35)
+            bad_cod += [(key, i) for i in np.flatnonzero(d.any(1)).tolist()
+                        if i not in out_slots.get(key, ())]
     return {"structure": False, "out_slots": out_slots, "words": words,
-            "bad_cod": bad_cod}
+            "bad_cod": bad_cod, "cod_checked": cod_checked}
 
 
 def run_voice(ks_path: str, packed, n_enc: int, fx: dict, dev, card: str,
@@ -538,8 +578,9 @@ def run_voice(ks_path: str, packed, n_enc: int, fx: dict, dev, card: str,
     bits path's must hold the same file names, sizes and .txt lines; its
     .out blocks may differ only in raw type-4 bits the wideband demod
     got wrong (traffic bits carry no CRC, so the stats cannot show
-    them), at most RAW_BIT_LIMIT of the dumped bits, and a voice frame
-    only in such a slot."""
+    them), at most RAW_BIT_LIMIT of the dumped bits; a voice frame may
+    differ only in such a slot, and there it must be the CPU plain
+    chain's decode of the card's own bits (traffic_diff)."""
     import tempfile
     import numpy as np
     from tetra_tpu_torch import prod_fixture
@@ -568,7 +609,7 @@ def run_voice(ks_path: str, packed, n_enc: int, fx: dict, dev, card: str,
         if d["structure"] or d["bad_cod"]:
             bad.append(c)
         else:
-            raw[c] = {"words": d["words"],
+            raw[c] = {"words": d["words"], "cod_checked": d["cod_checked"],
                       "slots": {k: sorted(v) for k, v in d["out_slots"].items()}}
     n_slots = sum(len(v) // 1380 for k, v in files.items()
                   if k.endswith(".out"))
@@ -702,7 +743,8 @@ def check_k5(dev, re, im, noisy) -> dict:
     # planes in (8 B a sample), decisions out (1 B); per sample a complex
     # matched filter (4 ops a tap), the differential phasor, the metric
     n = re.numel()
-    res["bound"] = bound(9 * n, n * (4 * len(dqpsk.rrc_taps(2)) + 16))
+    res["bound"] = bound(9 * n, n * (4 * len(dqpsk.rrc_taps(2)) + 16),
+                         F32_FLOPS)
     res["ms"] = cuda_ms(lambda: demod_fused.demodulate_hard_ri_pallas(re, im))
     res["plain_ms"] = cuda_ms(lambda: dqpsk.demodulate_hard_ri(re, im),
                               reps=3)
@@ -773,7 +815,7 @@ def check_k1_steady(re, im) -> dict:
             res[f"bound_{key}"] = bound(
                 x.numel() + 4 * tab.numel() + rm.numel()
                 + n * (mod.n_sym + len(mod.crc_segs)),
-                viterbi_ops(n, mod.n_sym, 4) + n * mod.n_sym)
+                viterbi_ops(n, mod.n_sym, 4) + n * mod.n_sym, INT32_OPS)
             res[f"ms_{key}"] = cuda_ms(lambda: mod(x, tab, rm))
             res[f"plain_ms_{key}"] = cuda_ms(plain, reps=1)
         res["calls"].append(call)

@@ -135,14 +135,26 @@ def test_wrappers_reject_bad_arguments():
         decode_segmented_k4(soft.double(), rm, 288, fused.BOUNDARIES)
     with pytest.raises(ValueError):
         decode_segmented_k4(soft, rm, 290, fused.BOUNDARIES)
-    with pytest.raises(TypeError):
-        decode_k6(soft.double(), 288)
     with pytest.raises(ValueError):
         decode_k6(soft, 289)
     with pytest.raises(ValueError):
         decode_k6(soft[:, :100], 112, C.CONV_GENERATORS_TCH)
     with pytest.raises(ValueError):
-        decode_k6(soft[:, ::2], 112, C.CONV_GENERATORS_TCH)
+        decode_k6(soft[:, :300:2], 112, C.CONV_GENERATORS_TCH)
+
+
+def test_k6_casts_like_the_tpu_kernel():
+    """K6 takes any real dtype, strides and leading dims, as
+    decode_pallas does: int8 [2, 3, W] and a strided f64 view decode as
+    the plain version decodes them."""
+    dev = cuda_device()
+    g = torch.Generator().manual_seed(4)
+    x = torch.randint(-127, 128, (2, 3, 2 * 336 + 5), generator=g)
+    for soft in (x[..., :336 + 5].to(torch.int8), x[..., ::2].double()):
+        got = decode_k6(soft.to(dev), 112, C.CONV_GENERATORS_TCH)
+        assert got.shape == (2, 3, 112)
+        assert torch.equal(got.cpu(),
+                           decode(soft, 112, C.CONV_GENERATORS_TCH))
 
 
 @pytest.mark.parametrize("shape", ["steady_8", "ragged_7x602",

@@ -98,7 +98,7 @@ def test_k6_wrapper_never_falls_back():
     version: a CPU tensor runs plain, anything else is refused before a
     launch (a meta tensor stands in for a card tensor here)."""
     soft = torch.empty((4, 3 * 10), device="meta")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
         decode_k6(soft, 10, C.CONV_GENERATORS_TCH)
 
 

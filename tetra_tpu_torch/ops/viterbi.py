@@ -139,14 +139,11 @@ def decode(soft: torch.Tensor, n_sym: int,
 
 def decode_auto(soft: torch.Tensor, n_sym: int,
                 generators=CONV_GENERATORS_CCH) -> torch.Tensor:
-    """Device-dispatching decode through K6's wrapper
-    (ops.viterbi_decode): the plain scan for CPU tensors, the kernel for
-    CUDA tensors. The input is cast to a contiguous float32 batch first,
-    as the TPU kernel casts it."""
+    """Device-dispatching decode: K6's wrapper
+    (ops.viterbi_decode.decode_k6), the plain scan for CPU tensors and
+    the kernel for CUDA tensors."""
     from tetra_tpu_torch.ops.viterbi_decode import decode_k6
-    batch = soft.shape[:-1]
-    flat = soft.reshape(-1, soft.shape[-1]).to(torch.float32).contiguous()
-    return decode_k6(flat, n_sym, generators).reshape(*batch, n_sym)
+    return decode_k6(soft, n_sym, generators)
 
 
 def decode_cch(soft: torch.Tensor, n_sym: int) -> torch.Tensor:

@@ -172,13 +172,14 @@ def keystore_file():
 
 def run_receiver(packed: np.ndarray, n_car: int, ks_path: str | None,
                  device, n_chunks: int = 4, demod: str = "hard",
-                 **egress):
+                 gsmtap_addr: tuple | None = None, **egress):
     """One pass of the production path: a fresh MultiCarrierReceiver
     (carrier c on PFB channel c of n_car, native plane, keystore, demod,
     and the egress options dumpdir, decode_voice, gsmtap_host and
     tl_sdu_sink as given) fed `packed` in n_chunks process_iq4c calls.
-    Returns (receiver, wall seconds; on a card the clock stops after a
-    synchronize)."""
+    gsmtap_addr (host, port), if given, is where its GSMTAP packets go
+    instead of gsmtap_host's GSMTAP port. Returns (receiver, wall
+    seconds; on a card the clock stops after a synchronize)."""
     from tetra_tpu_torch.rx_multi import MultiCarrierReceiver
     dev = torch.device(device)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -189,6 +190,8 @@ def run_receiver(packed: np.ndarray, n_car: int, ks_path: str | None,
         [], fs=25_000.0 * n_car, pfb_channels=np.arange(n_car),
         n_chan=n_car, keystore_path=ks_path, demod=demod, device=dev,
         **egress)
+    if gsmtap_addr is not None:
+        mrx.gsmtap.addr = gsmtap_addr
     for k in range(n_chunks):
         mrx.process_iq4c(packed[cuts[k]:cuts[k + 1]],
                          final=k == n_chunks - 1)
