@@ -12,12 +12,17 @@ Phases (one JSON line each):
               CPU-test shapes: K1 (assembled Viterbi + CRC, n_sym 288,
               80 and 144) bit-identical, K2 (PFB WOLA) and K3 (resampler)
               within max|d| <= 1e-4 * max|plain|, K4 (f32 segmented
-              Viterbi, n_sym 288 at ~21.5k rows and 80) bit-identical;
-              times of both.
+              Viterbi, n_sym 288 at ~21.5k rows, 80, 77 with two
+              restarts and 292) bit-identical; times of both. K1 and K4
+              also on the edge cases of their lane-group layout (row
+              counts 1, 3, 17, 3001; all-erasure rows; rows tied at a
+              restart boundary; every subset of the restarts; K1's tab
+              mixing every map), bit-identical.
               K6 (unsegmented Viterbi) bit-identical at the voice
               shape (3,072 rows, n_sym 112 and 72, speech code, half the
-              rows erasure-heavy) and at odd n_sym 77 (control code) and
-              113 (speech code); times of both.
+              rows erasure-heavy) and at odd n_sym 77 (control code), 113
+              (speech code) and TCH/4.8's 292 (control code); times of
+              both.
   3. small    an 8-carrier production capture through the receiver on
               the card and on the CPU (plain versions): identical
               per-carrier stats and native event arrays.
@@ -70,7 +75,9 @@ Phases (one JSON line each):
 Then the kernel summary line (each kernel's launches on its main path,
 max_abs_err, ms, plain_ms, the bound computed from the run's shapes
 and what sets it, and library_ms: null, no single PyTorch call computes
-any of these functions), the nvidia-smi line, and last
+any of these functions; for K1 and K4 also resident blocks per SM,
+registers per thread and shared bytes per block at the main path's
+shape), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits nonzero without that line when
 there is no card, the build fails, or any check fails.
 """
@@ -91,6 +98,7 @@ K4_ROWS = 21_504    # rows per chunk of the snr8 path's soft FEC
 K6_ROWS = 3_072     # traffic slots per chunk of the prod-1024 voice pass
 CLEAN_CRC_OK = 81_920
 STEADY_CAR = 4096   # bench stage 3: 4096 carriers x 64 slots
+RAGGED = (1, 3, 17, 3001)   # K1/K4 row counts that fill no warp or block
 ALL3 = ("sync", "schf", "ndb")
 HBM_BPS = 3.35e12   # H100 SXM device memory rate (bytes/s)
 # H100 SXM peaks outside the tensor cores (data sheet: 67 TFLOP/s f32,
@@ -195,9 +203,74 @@ def slot_batch(n_rows: int, dev, seed: int = 1):
             torch.as_tensor(kd, device=dev))
 
 
+def restart_subsets(B: int, nb: int, dev):
+    """rmask [B, nb] int8 cycling through every subset of the restarts."""
+    import torch
+    r = torch.arange(B, device=dev)[:, None] >> torch.arange(nb, device=dev)
+    return (r & 1).to(torch.int8)
+
+
+def k1_edge_rows(code, x, tab):
+    """K1's edge cases on rows x [B, K] int8 and tab [B]: every fifth
+    row all erasures (pure ties to the end), every fifth from the second
+    zero on every position feeding the steps before the first boundary
+    (the first 40 steps where there is none: a 16-way tie there), rmask
+    cycling through every restart subset. Returns (x, tab, rm)."""
+    import torch
+    x = x.clone()
+    x[::5] = 0
+    first = code.boundaries[0] if code.boundaries else 40
+    idx = code.pidx.long()[tab[1::5].long(), :4 * first]
+    fed = torch.zeros(x[1::5].shape, dtype=torch.int32, device=x.device)
+    fed.scatter_add_(1, idx.clamp(min=0), (idx >= 0).to(torch.int32))
+    x[1::5] = torch.where(fed > 0, 0, x[1::5]).to(torch.int8)
+    return x, tab, restart_subsets(x.shape[0], len(code.boundaries),
+                                   x.device)
+
+
+def k4_edge_rows(x, n_sym: int, bnd: tuple):
+    """K4's edge cases on soft rows x [B, >= 4 n_sym] f32: every fifth
+    row all erasures, every fifth from the second zero before the first
+    boundary (before n_sym // 2 where there is none), rmask cycling
+    through every restart subset. Returns (x, rm)."""
+    x = x.clone()
+    x[::5] = 0
+    x[1::5, :4 * (bnd[0] if bnd else n_sym // 2)] = 0
+    return x, restart_subsets(x.shape[0], len(bnd), x.device)
+
+
+def k1_edge_mismatches(code, x, tab) -> int:
+    """Bits and CRC flags of K1 that differ from its plain version on
+    k1_edge_rows of the first RAGGED rows of (x, tab)."""
+    from tetra_tpu_torch.ops.viterbi_assembled import decode_assembled_plain
+    bad = 0
+    for B in RAGGED:
+        xe, te, re = k1_edge_rows(code, x[:B], tab[:B].contiguous())
+        bk, ok_k = code(xe, te, re)
+        bp, ok_p = decode_assembled_plain(xe, code.pidx, te, re, code.n_sym,
+                                          code.boundaries, code.crc_segs)
+        bad += int((bk != bp).sum()) + int((ok_k != ok_p).sum())
+    return bad
+
+
+def k4_edge_mismatches(x, n_sym: int, bnd: tuple) -> int:
+    """Bits of K4 that differ from its plain version on k4_edge_rows of
+    the first RAGGED rows of x."""
+    from tetra_tpu_torch.ops.viterbi import decode_segmented
+    from tetra_tpu_torch.ops.viterbi_segmented import decode_segmented_k4
+    bad = 0
+    for B in RAGGED:
+        xe, re = k4_edge_rows(x[:B], n_sym, bnd)
+        bad += int((decode_segmented_k4(xe, re, n_sym, bnd)
+                    != decode_segmented(xe, re, n_sym, bnd)).sum())
+    return bad
+
+
 def check_k1(dev, n_rows: int) -> dict:
     """K1 vs its plain version at n_sym 288 (fused decode), 80 (SB1) and
-    144 (SB2 and NDB) on random signs and on corrupted real slots."""
+    144 (SB2 and NDB) on random signs and on corrupted real slots, and on
+    k1_edge_rows of the random signs (tab mixing every map at n288) at
+    each RAGGED row count."""
     import torch
     from profile_torch_demod import cuda_ms
     from tetra_tpu_torch import constants as C
@@ -247,6 +320,9 @@ def check_k1(dev, n_rows: int) -> dict:
             max_abs = max(max_abs, int((bk - bp).abs().max()),
                           int((ok_k - ok_p).abs().max()))
             n_ok += int(ok_k.sum())
+        edge = k1_edge_mismatches(code, *cases[-1][:2])
+        res[f"edge_mismatches_{name}"] = edge
+        worst = max(worst, edge)
         xi, ti, ri = cases[0]
         res[f"bound_{name}"] = bound(
             xi.numel() + 4 * ti.numel() + ri.numel()
@@ -345,8 +421,9 @@ def check_k4(dev, n_rows: int) -> dict:
     224) on n_rows rows (half real soft slots of the snr8 capture, the
     rest random soft values of the path's alphabet (int8 x 127, ~3/8
     erasures) and dyadic fractions, random restart masks), and n_sym 80
-    without restarts at the CPU test's shape [32, 320]. Bits must be
-    identical."""
+    without restarts at the CPU test's shape [32, 320]; then
+    k4_edge_rows of real and random rows at each RAGGED row count, at
+    n_sym 288, 80, 77 (two restarts) and 292. Bits must be identical."""
     import torch
     from profile_torch_demod import cuda_ms
     from tetra_tpu_torch.lmac.fused import BOUNDARIES, N_SYM
@@ -371,7 +448,18 @@ def check_k4(dev, n_rows: int) -> dict:
     rm80 = torch.zeros((32, 0), dtype=torch.int8, device=dev)
     res = {"rows": n_rows, "real_rows": n_real,
            "distinct_real_slots": int(real.shape[0])}
-    worst = 0
+    # edge cases: real and random rows interleaved, at n288 with the
+    # path's restarts, n80, n77 with two restarts and TCH/4.8's n292
+    half = max(RAGGED) // 2 + 1
+    mix = torch.stack([x[:half], x[n_real:n_real + half]], 1) \
+        .reshape(-1, 4 * N_SYM)
+    wide = torch.cat([mix, mix[:, :16]], 1)
+    for name, ns, bnd in (("n288", N_SYM, BOUNDARIES), ("n80", 80, ()),
+                          ("n77", 77, (20, 52)),
+                          ("n292", 292, (80, 144, 224))):
+        src = wide[:, :4 * ns].contiguous()
+        res[f"edge_mismatches_{name}"] = k4_edge_mismatches(src, ns, bnd)
+    worst = max(res[k] for k in res if k.startswith("edge_"))
     for name, xi, ri, ns, bnd in (("n288", x, rm, N_SYM, BOUNDARIES),
                                   ("n80", x80, rm80, 80, ())):
         bk = decode_segmented_k4(xi, ri, ns, bnd)
@@ -386,7 +474,8 @@ def check_k4(dev, n_rows: int) -> dict:
         res[f"plain_ms_{name}"] = cuda_ms(
             lambda: decode_segmented(xi, ri, ns, bnd), reps=2)
     res["max_abs_err"] = worst
-    if res["mismatches_n288"] or res["mismatches_n80"]:
+    if res["mismatches_n288"] or res["mismatches_n80"] \
+            or any(res[k] for k in res if k.startswith("edge_")):
         raise AssertionError(f"K4 differs from its plain version: {res}")
     return res
 
@@ -395,8 +484,8 @@ def check_k6(dev) -> dict:
     """K6 vs its plain version, bits identical: at the voice shape
     (K6_ROWS rows, n_sym 112 and 72, speech code; +-127 or 0 at random,
     half the rows erasure-heavy (90% zeros), the first 8 all erasures:
-    pure ties) and at odd n_sym 77 (control code) and 113 (speech code)
-    on 256 such rows."""
+    pure ties) and at odd n_sym 77 (control code), 113 (speech code)
+    and TCH/4.8's 292 (control code) on 256 such rows."""
     import torch
     from profile_torch_demod import cuda_ms
     from tetra_tpu_torch import constants as C
@@ -409,7 +498,8 @@ def check_k6(dev) -> dict:
     for name, rows, n_sym, gens in (("n112", K6_ROWS, 112, tch),
                                     ("n72", K6_ROWS, 72, tch),
                                     ("n77", 256, 77, cch),
-                                    ("n113", 256, 113, tch)):
+                                    ("n113", 256, 113, tch),
+                                    ("n292", 256, 292, cch)):
         w = n_sym * len(gens)
         x = (torch.randint(-1, 2, (rows, w), generator=g) * 127).float()
         half = rows // 2
@@ -767,7 +857,8 @@ def check_k1_steady(re, im) -> dict:
     n144 x2), 262,144 rows each. A forward hook on every AssembledCode
     catches each call's inputs and outputs; bits and ok must equal the
     plain version's on the same inputs. Times K1 and the plain version
-    on the first call of each n_sym."""
+    on the first call of each n_sym, and holds K1 to the plain version
+    on k1_edge_rows of that call's slots at each RAGGED row count."""
     import torch
     from profile_torch_demod import cuda_ms
     from tetra_tpu_torch import steady_fixture as sf
@@ -811,6 +902,9 @@ def check_k1_steady(re, im) -> dict:
                       int((ok_k - ok_p).abs().max()))
         key = f"n{mod.n_sym}"
         if f"ms_{key}" not in res:
+            edge = k1_edge_mismatches(mod, x, tab)
+            res[f"edge_mismatches_{key}"] = edge
+            worst = max(worst, edge)
             n = int(x.shape[0])
             res[f"bound_{key}"] = bound(
                 x.numel() + 4 * tab.numel() + rm.numel()
@@ -1043,6 +1137,11 @@ def main() -> int:
         steady = run_steady(dev, card)
         emit({"phase": "steady", **steady})
         d_launch = steady["fused"]["launches"]
+        # launch shape at the main path's calls: fused K1 (K 512, three
+        # maps, n288) and the soft path's K4 (N 4, n288)
+        k1_occ = kernels.occupancy("tt_viterbi_assembled", 512, 3, 288)
+        k4_occ = kernels.occupancy("tt_viterbi_segmented", 4, 288)
+        emit({"phase": "occupancy", "K1": k1_occ, "K4": k4_occ})
 
         emit({"kernels": [
             {"name": "viterbi_assembled", "route": "cuda",
@@ -1058,7 +1157,7 @@ def main() -> int:
              "steady_launches": d_launch["viterbi_assembled"],
              **{f"steady_{k}": k1s[k] for k in k1s
                 if k.startswith(("ms_", "plain_ms_"))},
-             **k1["bound_n288"], "library_ms": None},
+             **k1["bound_n288"], "library_ms": None, **k1_occ},
             {"name": "pfb_wola", "route": "cuda",
              "source": "tetra_tpu_torch/csrc/pfb_wola.cu",
              "replaces": "tetra_tpu/phy/pfb_pallas.py:212",
@@ -1080,7 +1179,7 @@ def main() -> int:
              "max_abs_err": float(k4["max_abs_err"]),
              "ms": k4["ms_n288"], "plain_ms": k4["plain_ms_n288"],
              "ms_n80": k4["ms_n80"], "plain_ms_n80": k4["plain_ms_n80"],
-             **k4["bound_n288"], "library_ms": None},
+             **k4["bound_n288"], "library_ms": None, **k4_occ},
             {"name": "viterbi_decode", "route": "cuda",
              "source": "tetra_tpu_torch/csrc/viterbi_segmented.cu",
              "replaces": "tetra_tpu/ops/viterbi_pallas.py:1019",

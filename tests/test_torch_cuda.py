@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import k1_edge_rows, k4_edge_rows
 from tetra_tpu_torch import constants as C, steady_fixture
 from tetra_tpu_torch.lmac import fused
 from tetra_tpu_torch.lmac.pipeline import _block_decoder
@@ -52,6 +53,88 @@ def test_k1_matches_plain(shape):
     assert torch.equal(bits, bp) and torch.equal(ok, okp)
 
 
+def k1_edge_inputs(name: str, B: int, dev):
+    """K1 inputs of one shape at B rows: random signs with tab cycling
+    through every map, then chip_smoke.k1_edge_rows (all-erasure rows,
+    rows tied before the first boundary, every restart subset)."""
+    code = {"n288": lambda: fused.fused_tables(dev).code,
+            "n80": lambda: _block_decoder("SB1", dev).code,
+            "n144": lambda: _block_decoder("NDB", dev).code}[name]()
+    K = {"n288": 512, "n80": 120, "n144": 216}[name]
+    g = torch.Generator().manual_seed(B)
+    x = torch.randint(-1, 2, (B, K), generator=g).to(torch.int8).to(dev)
+    tab = (torch.arange(B, device=dev) % code.pidx.shape[0]).to(torch.int32)
+    return (code, *k1_edge_rows(code, x, tab))
+
+
+@pytest.mark.parametrize("B", [1, 3, 17, 3001])
+@pytest.mark.parametrize("shape", ["n288", "n80", "n144"])
+def test_k1_edge_cases(shape, B):
+    """K1 bit-identical to its plain version (bits and CRC flags) at row
+    counts that fill no warp or block, on all-erasure rows, on rows
+    tied at a restart boundary, with tab mixing every map and every
+    subset of the restarts."""
+    from tetra_tpu_torch.ops.viterbi_assembled import decode_assembled
+    dev = cuda_device()
+    code, x, tab, rm = k1_edge_inputs(shape, B, dev)
+    n0 = decode_assembled.launches
+    bits, ok = code(x, tab, rm)
+    assert decode_assembled.launches == n0 + 1
+    bp, okp = decode_assembled_plain(x, code.pidx, tab, rm, code.n_sym,
+                                     code.boundaries, code.crc_segs)
+    assert torch.equal(bits, bp) and torch.equal(ok, okp)
+    assert not bits[::5].any()
+
+
+def k4_edge_inputs(n_sym: int, bnd: tuple, B: int, dev):
+    """K4 inputs at B rows: the soft path's alphabet (int8 x 127, 3/8
+    erasures) with every fifth row from the third dyadic fractions, then
+    chip_smoke.k4_edge_rows (all-erasure rows, rows tied before the
+    first boundary, every restart subset)."""
+    g = torch.Generator().manual_seed(B + n_sym)
+    x = (torch.randint(-124, 125, (B, 4 * n_sym), generator=g) * 127
+         ).to(torch.float32)
+    x[torch.rand(x.shape, generator=g) < 0.375] = 0
+    x[2::5] = torch.randint(-8, 9, x[2::5].shape, generator=g) * 0.25
+    return k4_edge_rows(x.to(dev), n_sym, bnd)
+
+
+@pytest.mark.parametrize("B", [1, 3, 17, 3001])
+@pytest.mark.parametrize("shape", ["n288", "n80", "n77_two_restarts",
+                                   "n292"])
+def test_k4_edge_cases(shape, B):
+    """K4 bit-identical to its plain version at row counts that fill no
+    warp or block, on all-erasure rows, on rows tied at a restart
+    boundary and with every subset of the restarts; n292 is TCH/4.8's
+    trellis length."""
+    dev = cuda_device()
+    n_sym, bnd = {"n288": (288, fused.BOUNDARIES), "n80": (80, ()),
+                  "n77_two_restarts": (77, (20, 52)),
+                  "n292": (292, (80, 144, 224))}[shape]
+    x, rm = k4_edge_inputs(n_sym, bnd, B, dev)
+    n0 = decode_segmented_k4.launches
+    bits = decode_segmented_k4(x, rm, n_sym, bnd)
+    assert decode_segmented_k4.launches == n0 + 1
+    assert torch.equal(bits, decode_segmented(x, rm, n_sym, bnd))
+    assert not bits[::5].any()
+
+
+def test_k4_reads_row_major_strides():
+    """K4 reads a row-major input wider than n_sym * N (no transpose,
+    row stride from the tensor) and every code width N = 1..4."""
+    dev = cuda_device()
+    g = torch.Generator().manual_seed(21)
+    for gens in (C.CONV_GENERATORS_CCH, C.CONV_GENERATORS_TCH,
+                 ((1, 4), (2, 3, 4)), ((1, 3, 4),)):
+        n = len(gens)
+        x = (torch.randint(-1, 2, (300, 80 * n + 7), generator=g) * 127
+             ).float().to(dev)
+        rm = torch.randint(0, 2, (300, 2), generator=g).to(torch.int8)
+        rm = rm.to(dev)
+        got = decode_segmented_k4(x, rm, 80, (16, 33), gens)
+        assert torch.equal(got, decode_segmented(x, rm, 80, (16, 33), gens))
+
+
 @pytest.mark.parametrize("shape", ["n288", "n80", "n77_two_restarts"])
 def test_k4_matches_plain(shape):
     """K4 bit-identical to its plain version on integer soft values of
@@ -72,7 +155,8 @@ def test_k4_matches_plain(shape):
 
 
 @pytest.mark.parametrize("n_sym,code", [(112, "tch"), (72, "tch"),
-                                        (77, "cch"), (113, "tch")])
+                                        (77, "cch"), (113, "tch"),
+                                        (292, "cch")])
 def test_k6_matches_plain(n_sym, code):
     """K6 bit-identical to its plain version on the voice alphabet
     (+-127 or 0), half the rows erasure-heavy, 8 rows all erasures."""
@@ -126,15 +210,37 @@ def test_wrappers_reject_bad_arguments():
     dev = cuda_device()
     code = _block_decoder("SB1", dev).code
     x = torch.zeros((4, 120), dtype=torch.int16, device=dev)
+    z4 = torch.zeros(4, dtype=torch.int32, device=dev)
+    r0 = torch.zeros((4, 0), dtype=torch.int8, device=dev)
     with pytest.raises(TypeError):
-        code(x, torch.zeros(4, dtype=torch.int32, device=dev),
-             torch.zeros((4, 0), dtype=torch.int8, device=dev))
+        code(x, z4, r0)
+    x8 = torch.zeros((4, 240), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):
+        code(x8[:, ::2], z4, r0)
+    with pytest.raises(TypeError):
+        code(x8[:, :120].contiguous(), z4.long(), r0)
+    with pytest.raises(ValueError):
+        code(x8[:, :120].contiguous(), z4[:3], r0)
     soft = torch.zeros((4, 1152), dtype=torch.float32, device=dev)
     rm = torch.zeros((4, 3), dtype=torch.int8, device=dev)
     with pytest.raises(TypeError):
         decode_segmented_k4(soft.double(), rm, 288, fused.BOUNDARIES)
     with pytest.raises(ValueError):
         decode_segmented_k4(soft, rm, 290, fused.BOUNDARIES)
+    wide = torch.zeros((4, 4 * 293), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError):
+        decode_segmented_k4(wide, rm, 293, fused.BOUNDARIES)
+    with pytest.raises(ValueError):
+        decode_segmented_k4(wide[:, :1152].clone(), rm, 288, (144, 80, 224))
+    with pytest.raises(ValueError):
+        decode_segmented_k4(wide[:, :1152], rm, 288, fused.BOUNDARIES)
+    with pytest.raises(ValueError):
+        decode_segmented_k4(soft, rm.t().contiguous().t(), 288,
+                            fused.BOUNDARIES)
+    with pytest.raises(TypeError):
+        decode_segmented_k4(soft, rm.to(torch.int32), 288, fused.BOUNDARIES)
+    with pytest.raises(ValueError):
+        decode_k6(wide, 293)
     with pytest.raises(ValueError):
         decode_k6(soft, 289)
     with pytest.raises(ValueError):

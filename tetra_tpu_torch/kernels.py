@@ -23,7 +23,7 @@ import threading
 
 import torch
 
-__all__ = ["lib", "check", "stream_ptr", "build"]
+__all__ = ["lib", "check", "stream_ptr", "build", "occupancy"]
 
 _CSRC = pathlib.Path(__file__).parent / "csrc"
 _BUILD = pathlib.Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -34,10 +34,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # exported launcher name -> ctypes argtypes (all return int = cudaError_t)
 _SIGNATURES = {
-    "tt_viterbi_assembled": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P,
-                             _I, _P, _P, _I, _I, _P],
-    "tt_viterbi_segmented": [_P, _P, _I, _P, _I, _I, _I, _I, _P, _I, _I,
-                             _P],
+    "tt_viterbi_assembled": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P,
+                             _P, _I, _P, _P, _I, _I, _P],
+    "tt_viterbi_assembled_occupancy": [_I, _I, _I, _P],
+    "tt_viterbi_segmented": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _I,
+                             _I, _P],
+    "tt_viterbi_segmented_occupancy": [_I, _I, _P],
     "tt_viterbi_decode": [_P, _P, _I, _P, _I, _I, _P],
     "tt_pfb_wola": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "tt_resample_rows": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _I,
@@ -113,6 +115,19 @@ def lib():
 def stream_ptr(device: torch.device) -> int:
     """Raw handle of PyTorch's current CUDA stream on `device`."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def occupancy(name: str, *args: int) -> dict:
+    """Launch shape of a lane-group kernel (K1, K4) at the given
+    arguments: the exported `<name>_occupancy` fills resident blocks per
+    SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers per
+    thread and shared bytes per block (cudaFuncGetAttributes plus the
+    dynamic size) and threads per block."""
+    out = (ctypes.c_int * 4)()
+    check(getattr(lib(), f"{name}_occupancy")(*args, ctypes.addressof(out)),
+          f"{name}_occupancy")
+    return dict(zip(("blocks_per_sm", "regs_per_thread", "smem_per_block",
+                     "threads_per_block"), out))
 
 
 def check(rc: int, name: str) -> None:

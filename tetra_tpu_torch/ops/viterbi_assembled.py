@@ -9,7 +9,9 @@ x for mother position m, or -1 for an erasure (`pmat_to_index`).
 Several assembly maps can share one call (the three burst kinds of the
 fused decode): pidx is [n_tab, n_sym*4] and tab [B] picks each row's
 map. `decode_assembled` launches csrc/viterbi_assembled.cu for CUDA
-tensors and runs `decode_assembled_plain` for CPU tensors.
+tensors and runs `decode_assembled_plain` for CPU tensors. The kernel
+decodes each row with a group of 16 lanes, one per trellis state, after
+staging the block's rows of x and the pidx table in shared memory.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from torch import nn
 from tetra_tpu_torch import kernels
 from tetra_tpu_torch.ops.crc import crc16_check, crc16_tables
 from tetra_tpu_torch.ops.viterbi import decode_segmented
+from tetra_tpu_torch.ops.viterbi_segmented import MAX_SYM, boundaries_ok
 
 __all__ = ["AssembledCode", "decode_assembled", "decode_assembled_plain",
            "pmat_to_index"]
@@ -77,15 +80,16 @@ def decode_assembled(x, pidx, tab, rmask, crcw, crct, n_sym: int,
     kernels.require_cuda(crct, "crct", torch.int32, 1)
     if pidx.shape[1] != 4 * n_sym or tab.shape[0] != B \
             or rmask.shape != (B, nb) or crcw.shape != (n_seg, n_sym) \
-            or crct.shape[0] != n_seg or nb > 3 or n_sym > 288:
+            or crct.shape[0] != n_seg or not 0 < n_sym <= MAX_SYM \
+            or not boundaries_ok(boundaries, n_sym, lowest=0):
         raise ValueError("decode_assembled: inconsistent shapes")
     bnd = list(boundaries) + [-1] * (3 - nb)
     bits = torch.empty((B, n_sym), dtype=torch.int8, device=x.device)
     ok = torch.empty((B, n_seg), dtype=torch.int8, device=x.device)
     rc = kernels.lib().tt_viterbi_assembled(
-        x.data_ptr(), K, pidx.data_ptr(), tab.data_ptr(), rmask.data_ptr(),
-        nb, bnd[0], bnd[1], bnd[2], crcw.data_ptr(), crct.data_ptr(),
-        n_seg, bits.data_ptr(), ok.data_ptr(), B, n_sym,
+        x.data_ptr(), K, pidx.data_ptr(), pidx.shape[0], tab.data_ptr(),
+        rmask.data_ptr(), nb, bnd[0], bnd[1], bnd[2], crcw.data_ptr(),
+        crct.data_ptr(), n_seg, bits.data_ptr(), ok.data_ptr(), B, n_sym,
         kernels.stream_ptr(x.device))
     kernels.check(rc, "tt_viterbi_assembled")
     decode_assembled.launches += 1

@@ -33,7 +33,8 @@ def decode_k6(soft: torch.Tensor, n_sym: int,
     n_sym] int8.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
-    (0 < n_sym <= 288, 0 < N <= 4 generators); anything else raises."""
+    (0 < n_sym <= MAX_SYM = 292, 0 < N <= 4 generators); anything else
+    raises."""
     gens = tuple(map(tuple, generators))
     if soft.device.type == "cpu":
         return decode(soft, n_sym, gens)

@@ -6,7 +6,8 @@ kernel the soft-decision path runs after its kind-compacted assembly
 restart mask per row -> decoded bits. The TPU kernel fuses four trellis
 steps per iteration (radix 16) and ranks tied candidates so that it
 reproduces the radix-2 chain's decisions; the CUDA kernel
-(csrc/viterbi_segmented.cu) runs that radix-2 chain directly.
+(csrc/viterbi_segmented.cu) runs that radix-2 chain directly, a group of
+16 lanes (one per state) per row, reading soft row-major as it comes.
 
 `decode_segmented_k4` runs the plain version (ops.viterbi.
 decode_segmented, float32 metrics) for CPU tensors and launches the
@@ -23,9 +24,18 @@ from tetra_tpu_torch.constants import CONV_GENERATORS_CCH
 from tetra_tpu_torch import kernels
 from tetra_tpu_torch.ops.viterbi import decode_segmented, trellis_signs
 
-__all__ = ["decode_segmented_k4", "sign_patterns", "patterns_on", "MAX_SYM"]
+__all__ = ["decode_segmented_k4", "sign_patterns", "patterns_on", "MAX_SYM",
+           "boundaries_ok"]
 
-MAX_SYM = 288          # decision words per row the kernel keeps
+MAX_SYM = 292          # trellis steps K1, K4 and K6 take: TCH/4.8's 292
+
+
+def boundaries_ok(boundaries, n_sym: int, lowest: int = 1) -> bool:
+    """At most three restart boundaries, strictly ascending, inside
+    [lowest, n_sym): what the kernels' segment loops take."""
+    b = list(boundaries)
+    return len(b) <= 3 and b == sorted(set(b)) \
+        and all(lowest <= v < n_sym for v in b)
 
 
 @functools.lru_cache(maxsize=4)
@@ -52,7 +62,7 @@ def decode_segmented_k4(soft, rmask, n_sym: int, boundaries: tuple = (),
     bits [B, n_sym] int8.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
-    (n_sym <= 288, at most 3 boundaries, N <= 4 generators)."""
+    (n_sym <= MAX_SYM, at most 3 boundaries, N <= 4 generators)."""
     gens = tuple(map(tuple, generators))
     if soft.device.type == "cpu":
         return decode_segmented(soft.to(torch.float32), rmask, n_sym,
@@ -62,21 +72,17 @@ def decode_segmented_k4(soft, rmask, n_sym: int, boundaries: tuple = (),
     nb = len(boundaries)
     kernels.require_cuda(soft, "soft", torch.float32, 2)
     kernels.require_cuda(rmask, "rmask", torch.int8, 2)
-    if not (0 < n_sym <= MAX_SYM and 0 < n <= 4 and nb <= 3) \
+    if not (0 < n_sym <= MAX_SYM and 0 < n <= 4) \
             or soft.shape[1] < n_sym * n or rmask.shape != (B, nb) \
-            or list(boundaries) != sorted(set(boundaries)) \
-            or any(not 0 < b < n_sym for b in boundaries):
+            or not boundaries_ok(boundaries, n_sym):
         raise ValueError("decode_segmented_k4: unsupported shape or "
                          "boundaries")
-    # time-major [n_sym*N, B]: one thread per row then reads a warp's
-    # 32 rows from 32 consecutive floats
-    soft_tm = soft[:, :n_sym * n].t().contiguous()
     pat = patterns_on(gens, soft.device)
     bnd = list(boundaries) + [-1] * (3 - nb)
     bits = torch.empty((B, n_sym), dtype=torch.int8, device=soft.device)
     rc = kernels.lib().tt_viterbi_segmented(
-        soft_tm.data_ptr(), pat.data_ptr(), n, rmask.data_ptr(), nb,
-        bnd[0], bnd[1], bnd[2], bits.data_ptr(), B, n_sym,
+        soft.data_ptr(), soft.shape[1], pat.data_ptr(), n, rmask.data_ptr(),
+        nb, bnd[0], bnd[1], bnd[2], bits.data_ptr(), B, n_sym,
         kernels.stream_ptr(soft.device))
     kernels.check(rc, "tt_viterbi_segmented")
     decode_segmented_k4.launches += 1

@@ -1,0 +1,191 @@
+#!/usr/bin/env python3
+"""Times kernels K1 and K4 and the steady-4096 pass of one checkout on
+the card, for comparing two trees in one session.
+
+    python3 tools/bench_torch_viterbi.py [--repo PATH] [--reps N]
+                                         [--no-steady]
+
+--repo names the checkout whose `tetra_tpu_torch` is imported and built
+(default: the one holding this script), so that a parent tree unpacked
+beside this one runs under the same script: run parent, change, change,
+parent in one call. Prints one JSON line:
+
+- the card (nvidia-smi name and power limit) and the tree;
+- K1 (`decode_assembled`) at n_sym 288 (the fused decode's three maps,
+  K 512, restarts at 80/144/224), 80 (SB1, K 120) and 144 (NDB, K 216),
+  on 20,000 and 262,144 rows of random signs; K4 (`decode_segmented_k4`)
+  at n_sym 288 on 21,504 rows of the soft path's alphabet with random
+  restarts, and at n_sym 80 on 32 rows. Each as the CUDA-event mean over
+  `reps` launches after a warm-up (tools/profile_torch_demod.cuda_ms,
+  `ms`) and as the kernel's own device time from torch.profiler
+  (`device_ms`), with its bound computed as chip_smoke.py computes it
+  and, where the tree exports it, the kernel's occupancy;
+- with the steady pass: `wall_s` of locked_step_ri(fast="pallas") on
+  4096 clean carriers x 64 slots under decoders=("fused",) and the
+  default three, one warm pass and then `reps` timed passes each, and
+  the CRC-OK count of the last.
+
+The inputs come from fixed seeds, so both trees decode the same rows;
+the Viterbi kernels run every step whatever the data, so random rows
+time as real ones do.
+"""
+import argparse
+import importlib.util
+import json
+import pathlib
+import sys
+import time
+
+HERE = pathlib.Path(__file__).resolve().parent
+ROOT = HERE.parent
+
+
+def _chip_smoke():
+    """This tree's chip_smoke.py (its bound formulas), by path: the
+    other tree has one of the same name."""
+    spec = importlib.util.spec_from_file_location("_cs_bench",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def device_ms(fn, reps: int, key: str = "viterbi"):
+    """Mean device time in ms of the kernels named `key` per fn() call,
+    from torch.profiler over `reps` calls (None where the profiler sees
+    no such kernel): the kernel alone, without the host's launch cost
+    that a CUDA-event mean includes for a short kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
+             if key in e.key)
+    return us / reps / 1e3 if us else None
+
+
+def k1_cases(dev, rows: int):
+    """(name, code, x, tab, rm) of the three K1 shapes at `rows`."""
+    import torch
+    from tetra_tpu_torch.lmac.fused import fused_tables
+    from tetra_tpu_torch.lmac.pipeline import _block_decoder
+    g = torch.Generator().manual_seed(rows)
+    tables = fused_tables(dev)
+    out = []
+    for name, code, K in (("n288", tables.code, 512),
+                          ("n80", _block_decoder("SB1", dev).code, 120),
+                          ("n144", _block_decoder("NDB", dev).code, 216)):
+        n_tab = code.pidx.shape[0]
+        x = torch.randint(-1, 2, (rows, K), generator=g).to(torch.int8)
+        tab = torch.randint(0, n_tab, (rows,), generator=g).to(torch.int32)
+        rm = (tables.rmask.cpu()[tab.long()] if code.boundaries
+              else torch.zeros((rows, 0), dtype=torch.int8))
+        out.append((name, code, x.to(dev), tab.to(dev), rm.to(dev)))
+    return out
+
+
+def k4_case(dev, rows: int, n_sym: int, bnd: tuple):
+    import torch
+    g = torch.Generator().manual_seed(rows + n_sym)
+    x = (torch.randint(-124, 125, (rows, 4 * n_sym), generator=g) * 127
+         ).to(torch.float32)
+    x[torch.rand(x.shape, generator=g) < 0.375] = 0
+    rm = torch.randint(0, 2, (rows, len(bnd)), generator=g).to(torch.int8)
+    return x.to(dev), rm.to(dev)
+
+
+def steady(dev, reps: int) -> dict:
+    import torch
+    from tetra_tpu_torch import steady_fixture as sf
+    from tetra_tpu_torch.lmac.steady import locked_step_ri
+    fx = sf.load()
+    re_np, im_np = sf.capture(4096, fx=fx)
+    re = torch.as_tensor(re_np, device=dev)
+    im = torch.as_tensor(im_np, device=dev)
+    del re_np, im_np
+    inits = torch.full((4096,), fx["init"], dtype=torch.int64, device=dev)
+    res = {}
+    for name, dec in (("fused", ("fused",)), ("all3", ("sync", "schf", "ndb"))):
+        run = lambda: locked_step_ri(re, im, inits, phase_bit=sf.PHASE_BIT,
+                                     n_slots=sf.N_SLOTS, fast="pallas",
+                                     decoders=dec)
+        run()
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        res[name] = {"wall_s": walls, "crc_ok": int(out["crc_ok"].sum())}
+        del out
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--repo", default=str(ROOT))
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--no-steady", action="store_true")
+    args = ap.parse_args()
+    repo = pathlib.Path(args.repo).resolve()
+    sys.path[:0] = [str(repo), str(HERE)]
+    import torch
+    if not torch.cuda.is_available():
+        print("bench_torch_viterbi: no CUDA card", file=sys.stderr)
+        return 2
+    cs = _chip_smoke()
+    # the package first: profile_torch_demod puts this tree's root on
+    # sys.path, and the package already imported is the one it then uses
+    from tetra_tpu_torch import kernels
+    from tetra_tpu_torch.ops.viterbi_segmented import decode_segmented_k4
+    from profile_torch_demod import cuda_ms
+    if not pathlib.Path(kernels.__file__).resolve().is_relative_to(repo):
+        raise RuntimeError(f"imported {kernels.__file__}, not from {repo}")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    kernels.lib()
+    res = {"repo": str(repo), "card": cs.smi(),
+           "build_s": time.perf_counter() - t0, "k1": {}, "k4": {}}
+    occ = getattr(kernels, "occupancy", None)
+    for rows in (20_000, 262_144):
+        for name, code, x, tab, rm in k1_cases(dev, rows):
+            n = rows
+            res["k1"][f"{name}_{rows}"] = {
+                "ms": cuda_ms(lambda: code(x, tab, rm), args.reps),
+                "device_ms": device_ms(lambda: code(x, tab, rm), args.reps),
+                **cs.bound(x.numel() + 4 * tab.numel() + rm.numel()
+                           + n * (code.n_sym + len(code.crc_segs)),
+                           cs.viterbi_ops(n, code.n_sym, 4) + n * code.n_sym,
+                           cs.INT32_OPS)}
+            if occ and rows == 20_000:
+                res["k1"][f"{name}_{rows}"].update(occ(
+                    "tt_viterbi_assembled", x.shape[1], code.pidx.shape[0],
+                    code.n_sym))
+            del x, tab, rm
+    for name, rows, ns, bnd in (("n288", 21_504, 288, (80, 144, 224)),
+                                ("n80", 32, 80, ())):
+        x, rm = k4_case(dev, rows, ns, bnd)
+        res["k4"][name] = {
+            "rows": rows,
+            "ms": cuda_ms(lambda: decode_segmented_k4(x, rm, ns, bnd),
+                          args.reps),
+            "device_ms": device_ms(lambda: decode_segmented_k4(x, rm, ns, bnd),
+                                   args.reps),
+            **cs.bound(4 * rows * 4 * ns + rm.numel() + rows * ns,
+                       cs.viterbi_ops(rows, ns, 4), cs.F32_OPS)}
+        if occ:
+            res["k4"][name].update(occ("tt_viterbi_segmented", 4, ns))
+    if not args.no_steady:
+        torch.cuda.empty_cache()
+        res["steady"] = steady(dev, args.reps)
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
