@@ -10,8 +10,10 @@ Phases (one JSON line each):
   2. kernels  each hand-written kernel against its plain PyTorch
               version on the card, at the main path's shapes and at the
               CPU-test shapes: K1 (assembled Viterbi + CRC, n_sym 288,
-              80 and 144) bit-identical, K2 (PFB WOLA) and K3 (resampler)
-              within max|d| <= 1e-4 * max|plain|, K4 (f32 segmented
+              80 and 144) bit-identical, K2 (PFB WOLA; C 1024, 8 and 12)
+              and K3 (resampler) within max|d| <= 1e-4 * max|plain|, with
+              torch.fft.fft over K2's [M, C] frames timed beside K2 (the
+              DFT stage alone, for reference), K4 (f32 segmented
               Viterbi, n_sym 288 at ~21.5k rows, 80, 77 with two
               restarts and 292) bit-identical; times of both. K1 and K4
               also on the edge cases of their lane-group layout (row
@@ -33,8 +35,11 @@ Phases (one JSON line each):
   4. prod     the 1024-carrier production capture (25 kHz spacing,
               fs 25.6 MS/s, 4 chunks, 102 TEA1-encrypted carriers)
               once warm and once timed; zero CRC errors, decode counts
-              inside the window the JAX package recorded, and K1, K2
-              and K3 launched by the timed run.
+              inside the window the JAX package recorded, the stats of
+              carriers 304, 610, 291, 337, 419, 518, 628 and 989 equal to
+              the JAX wideband path's record on the same capture
+              (prod_fixture.wideband_record), and K1, K2 and K3 launched
+              by the timed run.
      voice    the same capture once more, timed, with dumpdir (a
               temporary directory) and decode_voice: wall time beside
               prod's, traffic slots dumped, voice frames decoded, K6
@@ -43,7 +48,8 @@ Phases (one JSON line each):
               or encrypted), up to the raw traffic bits the wideband
               demod gets wrong (<= 1e-5 of them; a voice frame may
               differ only in such a slot, and there it must equal the
-              CPU plain chain's decode of the card's own bits).
+              CPU plain chain's decode of the card's own bits); the 8
+              recorded carriers' files equal to the JAX wideband path's.
   5. soft_small  the 8-carrier snr8 capture through the soft receiver
               (demod="soft") on the card and on the CPU: identical
               stats and events.
@@ -52,12 +58,14 @@ Phases (one JSON line each):
               once warm and once timed; crc_ok >= 0.90 x 81,920, crc_err
               <= 2 x the JAX record, and K1..K4 launched by the timed
               run.
-  7. kernels  K5 (fused hard demod) against its plain version at the
-              steady chain's shape [4096, 32,768] (half the carriers
-              with AWGN at 8 dB) and at the CPU tests' ragged [7, 602]:
-              decisions identical on clean carriers, <= 1e-3 differing
-              on noisy ones, the same timing phase on every carrier;
-              times of both. K1 at the steady chain's shape: every K1
+  7. kernels  K5 (fused hard demod: bits of the picked phase, the pick,
+              the metric sums) against its plain version at the steady
+              chain's shape [4096, 32,768] (half the carriers with AWGN
+              at 8 dB), at the CPU tests' ragged [7, 602] and at the
+              other CPU-test shapes (K5_SMALL): decisions identical on
+              clean carriers, <= 1e-3 differing on noisy ones, the same
+              timing phase on every carrier, metric sums within 1e-4
+              relative, and the smallest phase margin; times of both. K1 at the steady chain's shape: every K1
               call locked_step_ri(fast="pallas") makes on that noisy
               capture under both decoder sets (n288, n80, n144; 262,144
               rows each) bit-identical to its plain version. The K7
@@ -75,9 +83,9 @@ Phases (one JSON line each):
 Then the kernel summary line (each kernel's launches on its main path,
 max_abs_err, ms, plain_ms, the bound computed from the run's shapes
 and what sets it, and library_ms: null, no single PyTorch call computes
-any of these functions; for K1 and K4 also resident blocks per SM,
-registers per thread and shared bytes per block at the main path's
-shape), the nvidia-smi line, and last
+any of these functions; for K1, K2, K4 and K5 also resident blocks per
+SM, registers per thread and shared bytes per block at the main path's
+shape, and for K2 dft_only_ms), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits nonzero without that line when
 there is no card, the build fails, or any check fails.
 """
@@ -142,6 +150,22 @@ def viterbi_ops(rows: int, n_sym: int, n_gen: int) -> int:
     2^n_gen distinct branch metrics (n_gen - 1 adds each), 16
     add-compare-selects (4 each) and a traceback step."""
     return rows * n_sym * (2 ** n_gen * (n_gen - 1) + 64 + 1)
+
+
+def k2_bound(n_chan: int, T: int, frames: int, J: int = 16) -> dict:
+    """K2: planes in, the prototype and twiddles once, [M, C] complex
+    out; per frame and channel a complex window-and-fold over J branches
+    (4 ops each) and its share of a C-point complex FFT (5 log2 C)."""
+    return bound(8 * T + 4 * (J * n_chan + 2 * n_chan) + 8 * frames * n_chan,
+                 frames * n_chan * (4 * J + 5 * math.log2(n_chan)),
+                 F32_FLOPS)
+
+
+def k5_bound(n: int) -> dict:
+    """K5 on n samples: planes in (8 B a sample), bits out (1 B); per
+    sample a complex matched filter (4 ops a tap of rrc_taps(2)), the
+    differential phasor and the metric."""
+    return bound(9 * n, n * (4 * 22 + 16), F32_FLOPS)
 
 
 def rel_err(got, want) -> tuple[float, float]:
@@ -366,15 +390,15 @@ def check_pfb(dev, n_chan: int, T: int, seed: int) -> dict:
                                      n_out)
     d3, s3 = rel_err(k3(), p3())
     frames = int(yr.shape[0])
-    taps = fe.h.numel() // n_chan
-    # K2: per frame and channel a complex window-and-fold over `taps`
-    # branches (4 ops each) and its share of a C-point complex FFT
-    # (5 log2 C); K3: per output sample and channel <= 8 live taps of a
-    # complex row (4 ops each)
-    b2 = bound(8 * T + 4 * (fe.h.numel() + fe.twc.numel() + fe.tws.numel())
-               + 8 * frames * n_chan,
-               frames * n_chan * (4 * taps + 5 * math.log2(n_chan)),
-               F32_FLOPS)
+    # the DFT stage alone, for reference: torch.fft.fft over the [M, C]
+    # complex frames (it does not compute K2's function: no window, no
+    # hop rotation)
+    z = torch.complex(yr, yi)
+    dft_ms = cuda_ms(lambda: torch.fft.fft(z, dim=1))
+    del z
+    b2 = k2_bound(n_chan, T, frames, fe.J)
+    # K3: per output sample and channel <= 8 live taps of a complex row
+    # (4 ops each)
     b3 = bound(8 * frames * n_chan + 8 * n_out * n_chan,
                n_out * n_chan * 4 * 8, F32_FLOPS)
     res = {"n_chan": n_chan, "samples": T, "frames": frames,
@@ -383,6 +407,7 @@ def check_pfb(dev, n_chan: int, T: int, seed: int) -> dict:
            "k2_max_abs_err": d2, "k2_max_abs_plain": s2,
            "k3_max_abs_err": d3, "k3_max_abs_plain": s3,
            "k2_ms": cuda_ms(k2), "k2_plain_ms": cuda_ms(p2),
+           "k2_dft_only_ms": dft_ms,
            "k3_ms": cuda_ms(k3), "k3_plain_ms": cuda_ms(p3)}
     if not (d2 <= TOL * s2 and d3 <= TOL * s3):
         raise AssertionError(f"K2/K3 outside tolerance: {res}")
@@ -701,6 +726,8 @@ def run_voice(ks_path: str, packed, n_enc: int, fx: dict, dev, card: str,
         else:
             raw[c] = {"words": d["words"], "cod_checked": d["cod_checked"],
                       "slots": {k: sorted(v) for k, v in d["out_slots"].items()}}
+    record = prod_fixture.wideband_record(fx)
+    wide_files = {c: per[c] == f for c, (_, f) in record.items()}
     n_slots = sum(len(v) // 1380 for k, v in files.items()
                   if k.endswith(".out"))
     raw_words = sum(r["words"] for r in raw.values())
@@ -719,8 +746,10 @@ def run_voice(ks_path: str, packed, n_enc: int, fx: dict, dev, card: str,
            "carriers_with_raw_bit_differences": raw,
            "raw_bit_fraction": raw_words / max(n_slots * 432, 1),
            "carriers_bits_equal_files_differ": bad,
+           "files_equal_jax_wideband": wide_files,
            "launches": n_launch}
-    if bad or res["raw_bit_fraction"] > RAW_BIT_LIMIT:
+    if bad or res["raw_bit_fraction"] > RAW_BIT_LIMIT \
+            or not all(wide_files.values()):
         raise AssertionError(f"voice: files differ from the fixture: {res}")
     if n_launch["viterbi_decode"] <= 0 or res["voice_frames"] <= 0:
         raise AssertionError(f"voice: K6 not launched: {res}")
@@ -780,29 +809,86 @@ def run_snr8(dev, card: str) -> dict:
 
 
 def k5_case(re, im, noisy) -> dict:
-    """K5 (kernel + phase pick) vs its plain version on planes re, im
-    [C, T] on the card; noisy [C] bool marks carriers with AWGN."""
+    """K5 (bits, phase pick, metric sums) vs its plain version on planes
+    re, im [C, T] on the card; noisy [C] bool marks carriers with AWGN.
+    Also the smallest gap between a carrier's two phase sums, relative to
+    the larger (the margin of the closest phase pick)."""
     import torch
-    from tetra_tpu_torch.phy import demod_fused, dqpsk
-    sel, best, part = demod_fused._demod_parts(re, im)
-    got = demod_fused._unpack_bits(sel)
-    want = dqpsk.demodulate_hard_ri(re, im)
-    _, _, score = dqpsk._stream_score(re, im, 2, 1)
+    from tetra_tpu_torch.phy import demod_fused
+    got, best, met = demod_fused.demod_fused(re, im)
+    want, best_p, met_p = demod_fused.demod_fused_plain(re, im)
     diff = got != want
     clean = ~noisy
+    gap = (met_p[:, 0] - met_p[:, 1]).abs() / met_p.abs().amax(1).clamp(
+        min=1e-30)
     res = {"carriers": int(re.shape[0]), "samples": int(re.shape[1]),
            "noisy_carriers": int(noisy.sum()),
            "mismatches_clean": int(diff[clean].sum()),
            "mismatch_frac_noisy": (float(diff[noisy].float().mean())
                                    if bool(noisy.any()) else 0.0),
-           "phase_picks_differ": int(
-               (best != torch.argmax(score, dim=-1)).sum()),
-           "metric_max_abs_err": float(
-               (part.sum(1) / (re.shape[1] // 2) - score).abs().max()),
-           "max_abs_err": int((got - want).abs().max())}
+           "phase_picks_differ": int((best != best_p).sum()),
+           "metric_max_rel_err": float(((met - met_p).abs()
+                                        / met_p.abs().clamp(min=1e-30))
+                                       .max()),
+           "min_phase_margin": float(gap.min()),
+           "max_abs_err": int((got - want).abs().max()) if got.numel()
+           else 0}
     if res["mismatches_clean"] or res["mismatch_frac_noisy"] > 1e-3 \
-            or res["phase_picks_differ"]:
+            or res["phase_picks_differ"] or res["metric_max_rel_err"] > 1e-4:
         raise AssertionError(f"K5 differs from its plain version: {res}")
+    return res
+
+
+def k5_small_planes(dev, C_: int, n_sym: int, seed: int, trim: int = 0,
+                    delay: int = 0):
+    """Clean random-bit planes [C_, 2 n_sym - trim] at sps 2 (delayed by
+    `delay` samples) on dev, as the CPU tests make them."""
+    import numpy as np
+    import torch
+    from tetra_tpu_torch.phy import dqpsk
+    bits = np.random.default_rng(seed).integers(0, 2, (C_, 2 * n_sym))
+    iq = dqpsk.modulate(bits.astype(np.uint8), sps=2)
+    if delay:
+        iq = np.concatenate([np.zeros((C_, delay), iq.dtype),
+                             iq[:, :-delay]], 1)
+    iq = iq[:, :iq.shape[1] - trim]
+    return (torch.as_tensor(iq.real.astype(np.float32), device=dev),
+            torch.as_tensor(iq.imag.astype(np.float32), device=dev))
+
+
+# K5's other CPU-test shapes (tests/test_torch_steady.py): carriers,
+# symbols, samples cut off the end, delay; T odd, T < 256, T not a
+# multiple of the kernel's 2048-sample tile, one carrier
+K5_SMALL = {"clean": (5, 700, 0, 0), "timing_offset": (4, 500, 0, 1),
+            "single_block": (2, 64, 0, 0), "odd_T": (3, 301, 1, 0),
+            "one_carrier": (1, 1500, 0, 1)}
+
+
+def check_k5(dev, re, im, noisy) -> dict:
+    """K5 on the noisy steady capture (noisy_steady), at the CPU tests'
+    ragged [7, 602] and at the other K5_SMALL shapes (clean); times of
+    the kernel (demodulate_hard_ri_pallas: one launch, nothing else on
+    the card) and of the plain version at the steady shape."""
+    import numpy as np
+    import torch
+    from profile_torch_demod import cuda_ms
+    from tetra_tpu_torch.phy import demod_fused, dqpsk
+    res = {"steady": k5_case(re, im, noisy), "bound": k5_bound(re.numel())}
+    res["ms"] = cuda_ms(lambda: demod_fused.demodulate_hard_ri_pallas(re, im))
+    res["plain_ms"] = cuda_ms(lambda: dqpsk.demodulate_hard_ri(re, im),
+                              reps=3)
+    bits = np.random.default_rng(14).integers(0, 2, (7, 602))
+    iq = dqpsk.modulate(bits.astype(np.uint8), sps=2)
+    rr = torch.as_tensor(iq.real.astype(np.float32), device=dev)
+    ri = torch.as_tensor(iq.imag.astype(np.float32), device=dev)
+    res["ragged"] = k5_case(rr, ri, torch.zeros(7, dtype=torch.bool,
+                                                device=dev))
+    for seed, (name, (C_, n_sym, trim, delay)) in enumerate(K5_SMALL.items()):
+        pr, pi = k5_small_planes(dev, C_, n_sym, 20 + seed, trim, delay)
+        res[f"small_{name}"] = k5_case(pr, pi, torch.zeros(
+            C_, dtype=torch.bool, device=dev))
+    res["max_abs_err"] = max(v["max_abs_err"] for v in res.values()
+                             if isinstance(v, dict) and "max_abs_err" in v)
     return res
 
 
@@ -819,34 +905,6 @@ def noisy_steady(dev):
     re = torch.as_tensor(re_np, device=dev)
     im = torch.as_tensor(im_np, device=dev)
     return re, im, torch.arange(STEADY_CAR, device=dev) >= half
-
-
-def check_k5(dev, re, im, noisy) -> dict:
-    """K5 on the noisy steady capture (noisy_steady) and at the CPU
-    tests' ragged [7, 602] (random bits, clean); times of the wrapper
-    and of the plain version at the steady shape."""
-    import numpy as np
-    import torch
-    from profile_torch_demod import cuda_ms
-    from tetra_tpu_torch.phy import demod_fused, dqpsk
-    res = {"steady": k5_case(re, im, noisy)}
-    # planes in (8 B a sample), decisions out (1 B); per sample a complex
-    # matched filter (4 ops a tap), the differential phasor, the metric
-    n = re.numel()
-    res["bound"] = bound(9 * n, n * (4 * len(dqpsk.rrc_taps(2)) + 16),
-                         F32_FLOPS)
-    res["ms"] = cuda_ms(lambda: demod_fused.demodulate_hard_ri_pallas(re, im))
-    res["plain_ms"] = cuda_ms(lambda: dqpsk.demodulate_hard_ri(re, im),
-                              reps=3)
-    bits = np.random.default_rng(14).integers(0, 2, (7, 602))
-    iq = dqpsk.modulate(bits.astype(np.uint8), sps=2)
-    rr = torch.as_tensor(iq.real.astype(np.float32), device=dev)
-    ri = torch.as_tensor(iq.imag.astype(np.float32), device=dev)
-    res["ragged"] = k5_case(rr, ri, torch.zeros(7, dtype=torch.bool,
-                                                device=dev))
-    res["max_abs_err"] = max(res["steady"]["max_abs_err"],
-                             res["ragged"]["max_abs_err"])
-    return res
 
 
 def check_k1_steady(re, im) -> dict:
@@ -1067,8 +1125,9 @@ def main() -> int:
         # plus its overlap-save history; CPU-test shapes: C = 8
         k23 = check_pfb(dev, N_CAR, 6_672_000, 1)
         emit({"phase": "kernels", "kernel": "K2+K3", **k23})
-        emit({"phase": "kernels", "kernel": "K2+K3",
-              **check_pfb(dev, 8, 60_000, 2)})
+        for n_chan, T, seed in ((8, 60_000, 2), (12, 30_000, 3)):
+            emit({"phase": "kernels", "kernel": "K2+K3",
+                  **check_pfb(dev, n_chan, T, seed)})
 
         with prod_fixture.keystore_file() as ks_path:
             emit({"phase": "small", **check_small(ks_path, dev)})
@@ -1104,15 +1163,21 @@ def main() -> int:
             "carriers_equal_jax_bits_path": int((mine == jbits).all(1).sum()),
             "crc_ok_short_of_bits_path": int((jbits[:, 1] - mine[:, 1]).sum()),
             "carriers_with_crc_wrong": int((mine[:, 2] > 0).sum())}
+        # the JAX wideband path's own per-carrier record on 8 carriers
+        wide = {c: {"port": mine[c].tolist(), "jax_wideband": list(st)}
+                for c, (st, _) in prod_fixture.wideband_record(fx).items()}
         rt = N_CAR * T_bits / prod_fixture.BITRATE / wall
         emit({"phase": "prod", "carriers": N_CAR, "chunks": N_CHUNKS,
               "encrypted": n_enc, "warm_s": warm_s, "wall_s": wall,
               "realtime_carriers": rt, "card": card, **got,
               "jax_window": ref, "in_window": in_window,
               "equals_jax_wideband": equals_jax_wideband, **per_carrier,
-              "launches": n_launch})
+              "per_carrier_jax_wideband": wide, "launches": n_launch})
         if not all(in_window.values()):
             raise AssertionError("decode counts outside the JAX window")
+        if any(v["port"] != v["jax_wideband"] for v in wide.values()):
+            raise AssertionError("per-carrier stats differ from the JAX "
+                                 "wideband record")
         if min(n_launch[k] for k in ("viterbi_assembled", "pfb_wola",
                                      "resample_rows")) <= 0:
             raise AssertionError(f"a kernel was not launched: {n_launch}")
@@ -1141,7 +1206,10 @@ def main() -> int:
         # maps, n288) and the soft path's K4 (N 4, n288)
         k1_occ = kernels.occupancy("tt_viterbi_assembled", 512, 3, 288)
         k4_occ = kernels.occupancy("tt_viterbi_segmented", 4, 288)
-        emit({"phase": "occupancy", "K1": k1_occ, "K4": k4_occ})
+        k2_occ = kernels.occupancy("tt_pfb_wola", N_CAR)
+        k5_occ = kernels.occupancy("tt_demod_fused")
+        emit({"phase": "occupancy", "K1": k1_occ, "K4": k4_occ,
+              "K2": k2_occ, "K5": k5_occ})
 
         emit({"kernels": [
             {"name": "viterbi_assembled", "route": "cuda",
@@ -1164,7 +1232,8 @@ def main() -> int:
              "launches": n_launch["pfb_wola"],
              "max_abs_err": k23["k2_max_abs_err"],
              "ms": k23["k2_ms"], "plain_ms": k23["k2_plain_ms"],
-             **k23["k2_bound"], "library_ms": None},
+             "dft_only_ms": k23["k2_dft_only_ms"],
+             **k23["k2_bound"], "library_ms": None, **k2_occ},
             {"name": "resample_rows", "route": "cuda",
              "source": "tetra_tpu_torch/csrc/resample_rows.cu",
              "replaces": "tetra_tpu/phy/pfb_pallas.py:337",
@@ -1194,7 +1263,7 @@ def main() -> int:
              "launches": d_launch["demod_fused"],
              "max_abs_err": float(k5["max_abs_err"]),
              "ms": k5["ms"], "plain_ms": k5["plain_ms"],
-             **k5["bound"], "library_ms": None},
+             **k5["bound"], "library_ms": None, **k5_occ},
             {"name": "demod_fused (K7 stage bisect, kernel alone)",
              "route": "cuda",
              "source": "tetra_tpu_torch/csrc/demod_fused.cu",

@@ -186,24 +186,60 @@ def test_voice_decode_on_card_matches_cpu():
             assert torch.equal(a.cpu(), b)
 
 
-@pytest.mark.parametrize("n_chan,T", [(8, 40_000), (1024, 400_000),
-                                      (12, 30_000)])
+@pytest.mark.parametrize("n_chan,T", [
+    (8, 40_000), (1024, 400_000), (12, 30_000), (16, 20_000),
+    (2048, 16 * 2048 + 12 * 1024), (4096, 16 * 4096 + 16 * 2048),
+    (64, 700)])
 def test_k2_k3_match_plain(n_chan, T):
+    """K2 and K3 within 1e-4 x max|plain| of their plain versions: C a
+    power of two from 8 to 4096 (one, two and three FFT passes), C = 12
+    (direct DFT), frame counts that are not a multiple of the block's
+    (750 at C 1024, 13 at 2048, 17 at 4096) and T < J·C (one padded
+    frame)."""
     dev = cuda_device()
     fe = pfb.PfbFrontEnd(n_chan, 25_000.0 * n_chan).to(dev)
     g = torch.Generator().manual_seed(n_chan)
     re = torch.randn(T, generator=g).to(dev)
     im = torch.randn(T, generator=g).to(dev)
+    n0 = pfb.pfb_channelize_rows.launches
     yk = pfb.pfb_channelize_rows(re, im, fe.h, fe.twc, fe.tws, n_chan, fe.J)
-    yp = pfb.pfb_channelize_rows_plain(re, im, fe.h, n_chan, fe.J)
+    assert pfb.pfb_channelize_rows.launches == n0 + 1
+    yp = pfb.pfb_channelize_rows_plain(
+        torch.nn.functional.pad(re, (0, max(n_chan * fe.J - T, 0))),
+        torch.nn.functional.pad(im, (0, max(n_chan * fe.J - T, 0))),
+        fe.h, n_chan, fe.J)
     for a, b in zip(yk, yp):
+        assert a.shape == b.shape
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
     n_out = fe.n_out(yp[0].shape[0])
+    if n_out == 0:
+        return
     ok_ = pfb.resample_rows(*yp, fe.rs_taps, fe.rs_off, fe.W, fe.bmin, fe.L,
                             fe.M, n_out)
     op = pfb.resample_rows_plain(*yp, fe.W, fe.bmin, fe.L, fe.M, n_out)
     for a, b in zip(ok_, op):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_k2_rejects_bad_arguments():
+    dev = cuda_device()
+    fe = pfb.PfbFrontEnd(16, 400_000.0).to(dev)
+    x = torch.zeros(4000, device=dev)
+    with pytest.raises(TypeError):
+        pfb.pfb_channelize_rows(x.double(), x.double(), fe.h, fe.twc,
+                                fe.tws, 16, 16)
+    with pytest.raises(ValueError):
+        pfb.pfb_channelize_rows(x, x[:3000], fe.h, fe.twc, fe.tws, 16, 16)
+    with pytest.raises(ValueError):
+        pfb.pfb_channelize_rows(x, x.cpu(), fe.h, fe.twc, fe.tws, 16, 16)
+    with pytest.raises(ValueError):
+        pfb.pfb_channelize_rows(x, x, fe.h, fe.twc, fe.tws, 16, 8)
+    with pytest.raises(ValueError):
+        pfb.pfb_channelize_rows(x, x, fe.h[:-1], fe.twc, fe.tws, 16, 16)
+    big = pfb.PfbFrontEnd(8192, 25_000.0 * 8192).to(dev)
+    y = torch.zeros(16 * 8192, device=dev)
+    with pytest.raises(ValueError):
+        pfb.pfb_channelize_rows(y, y, big.h, big.twc, big.tws, 8192, 16)
 
 
 def test_wrappers_reject_bad_arguments():
@@ -263,39 +299,99 @@ def test_k6_casts_like_the_tpu_kernel():
                            decode(soft, 112, C.CONV_GENERATORS_TCH))
 
 
-@pytest.mark.parametrize("shape", ["steady_8", "ragged_7x602",
-                                   "tile_1024", "tile_256"])
-def test_k5_matches_plain(shape):
-    """K5 vs dqpsk.demodulate_hard_ri: identical decisions on clean
-    carriers, <= 1e-3 differing on carriers with AWGN at 8 dB, and the
-    same timing phase on every carrier."""
-    dev = cuda_device()
-    tile_t = {"tile_1024": 1024, "tile_256": 256}.get(shape, 512)
+def k5_planes(shape: str):
+    """K5 card-test inputs (numpy re, im [C, T] f32, noisy [C] bool)."""
     if shape == "ragged_7x602":
         bits = np.random.default_rng(14).integers(0, 2, (7, 602))
         iq = dqpsk.modulate(bits.astype(np.uint8), sps=2)
-        re, im = iq.real.astype(np.float32), iq.imag.astype(np.float32)
-        noisy = np.zeros(7, bool)
-    else:
-        re, im = steady_fixture.capture(8, noisy=range(4, 8), seed=2)
-        noisy = np.arange(8) >= 4
-        if shape != "steady_8":
-            re, im = re[:, :5_000].copy(), im[:, :5_000].copy()
+        return (iq.real.astype(np.float32), iq.imag.astype(np.float32),
+                np.zeros(7, bool))
+    if shape == "one_carrier":
+        re, im = steady_fixture.capture(1, seed=3)
+        return re[:, :9_001].copy(), im[:, :9_001].copy(), np.zeros(1, bool)
+    if shape == "4096_carriers_short":
+        re, im = steady_fixture.capture(4096, noisy=range(2048, 4096),
+                                        seed=4)
+        return (re[:, :2_500].copy(), im[:, :2_500].copy(),
+                np.arange(4096) >= 2048)
+    re, im = steady_fixture.capture(8, noisy=range(4, 8), seed=2)
+    noisy = np.arange(8) >= 4
+    T = {"steady_8": re.shape[1], "short_5000": 5_000, "odd_4097": 4_097,
+         "under_one_tile_255": 255}[shape]
+    return re[:, :T].copy(), im[:, :T].copy(), noisy
+
+
+@pytest.mark.parametrize("shape", ["steady_8", "ragged_7x602", "short_5000",
+                                   "odd_4097", "under_one_tile_255",
+                                   "one_carrier", "4096_carriers_short"])
+def test_k5_matches_plain(shape):
+    """K5 vs its plain version: identical bits on clean carriers, <= 1e-3
+    differing on carriers with AWGN at 8 dB, the same timing phase on
+    every carrier and the metric sums within 1e-5 relative; T not a
+    multiple of the 2048-sample tile, odd, under one tile; C 1, 7, 8 and
+    4096. The slot-framed entry's slots are a view of its bits."""
+    dev = cuda_device()
+    re, im, noisy = k5_planes(shape)
     re, im = torch.as_tensor(re, device=dev), torch.as_tensor(im, device=dev)
-    sel, best, _ = demod_fused._demod_parts(re, im, tile_t=tile_t)
-    got = demod_fused._unpack_bits(sel).cpu().numpy()
-    want = dqpsk.demodulate_hard_ri(re, im).cpu().numpy()
-    score = dqpsk._stream_score(re, im, 2, 1)[2]
-    assert torch.equal(best, torch.argmax(score, dim=-1))
+    n0 = demod_fused.demod_fused.launches
+    bits, best, met = demod_fused.demod_fused(re, im)
+    assert demod_fused.demod_fused.launches == n0 + 1
+    want, best_p, met_p = demod_fused.demod_fused_plain(re, im)
+    got, want = bits.cpu().numpy(), want.cpu().numpy()
+    assert torch.equal(best, best_p)
+    assert float(((met - met_p).abs() / met_p.abs()).max()) <= 1e-5
     assert np.array_equal(got[~noisy], want[~noisy])
     if noisy.any():
         assert np.mean(got[noisy] != want[noisy]) <= 1e-3
     if got.shape[1] >= 64 + 2 * 510:
-        slots, bits = demod_fused.demodulate_hard_slots_ri_pallas(
-            re, im, 2, phase_bit=64, tile_t=tile_t)
-        assert np.array_equal(bits.cpu().numpy(), got)
+        slots, bits2 = demod_fused.demodulate_hard_slots_ri_pallas(
+            re, im, 2, phase_bit=64)
+        assert np.array_equal(bits2.cpu().numpy(), got)
+        assert slots.data_ptr() == bits2.data_ptr() + 64
         assert np.array_equal(slots.cpu().numpy().reshape(len(got), -1),
                               got[:, 64:64 + 2 * 510])
+
+
+def test_k5_phase_ties():
+    """Ties and near-ties of the phase pick: an all-zero carrier (both
+    sums 0) picks phase 0, as torch.argmax's first maximum; noise-only
+    carriers (sums a hair apart) pick the larger of the kernel's own
+    sums, and the plain version's phase wherever the plain sums differ
+    by more than 1e-5 relative."""
+    dev = cuda_device()
+    rng = np.random.default_rng(8)
+    re = rng.standard_normal((6, 3_000)).astype(np.float32)
+    im = rng.standard_normal((6, 3_000)).astype(np.float32)
+    re[0] = im[0] = 0
+    re, im = torch.as_tensor(re, device=dev), torch.as_tensor(im, device=dev)
+    _, best, met = demod_fused.demod_fused(re, im)
+    _, best_p, met_p = demod_fused.demod_fused_plain(re, im)
+    assert int(best[0]) == 0 and float(met[0].abs().max()) == 0.0
+    assert torch.equal(best, (met[:, 1] > met[:, 0]).long())
+    gap = (met_p[:, 0] - met_p[:, 1]).abs() / met_p.amax(1).clamp(min=1e-30)
+    sure = gap > 1e-5
+    assert torch.equal(best[sure], best_p[sure])
+
+
+def test_k5_copy_paths():
+    """K5 copies its window 16 bytes at a time where every row is
+    16-byte aligned (T % 4 == 0, aligned planes) and 4 bytes otherwise:
+    planes one float into their storage take the 4-byte copies and give
+    exactly the bits, pick and sums of an aligned copy."""
+    dev = cuda_device()
+    re, im = steady_fixture.capture(8, noisy=range(4, 8), seed=7)
+    outs = []
+    for shift in (0, 1):
+        planes = []
+        for x in (re[:, :6_000], im[:, :6_000]):
+            flat = torch.zeros(x.size + shift, device=dev)
+            flat[shift:] = torch.as_tensor(np.ascontiguousarray(x).ravel(),
+                                           device=dev)
+            planes.append(flat[shift:].view(x.shape))
+        assert (planes[0].data_ptr() % 16 == 0) == (shift == 0)
+        outs.append(demod_fused.demod_fused(*planes))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 def test_k5_rejects_bad_arguments():
@@ -304,12 +400,16 @@ def test_k5_rejects_bad_arguments():
     with pytest.raises(TypeError):
         demod_fused.demod_fused(x.double(), x.double())
     with pytest.raises(ValueError):
-        demod_fused.demod_fused(x.cpu(), x.cpu())
+        demod_fused.demod_fused(x, x.cpu())
     for sps in (1, 3, 4):
         with pytest.raises(ValueError):
             demod_fused.demod_fused(x, x, sps=sps)
     with pytest.raises(ValueError):
         demod_fused.demod_fused(x, x[:1])
+    with pytest.raises(ValueError):
+        demod_fused.demod_fused(x[:, ::2], x[:, ::2])
+    with pytest.raises(ValueError):
+        demod_fused.demodulate_hard_slots_ri_pallas(x, x, 1, phase_bit=3)
 
 
 def test_steady_chain_launches_k5_and_k1():

@@ -153,10 +153,11 @@ def _imports_of_jax_package(path: pathlib.Path) -> list:
 
 def test_port_sources_import_nothing_of_jax_package():
     """No module of the port, nor chip_smoke.py, nor the port's profiling
-    tools imports tetra_tpu (as opposed to tetra_tpu_torch)."""
+    and bench tools imports tetra_tpu (as opposed to tetra_tpu_torch)."""
     files = sorted((ROOT / "tetra_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py",
-              *sorted((ROOT / "tools").glob("profile_torch_*.py"))]
+              *sorted((ROOT / "tools").glob("profile_torch_*.py")),
+              *sorted((ROOT / "tools").glob("bench_torch_*.py"))]
     assert len(files) > 30
     bad = [b for f in files for b in _imports_of_jax_package(f)]
     assert not bad, bad

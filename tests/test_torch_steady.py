@@ -37,32 +37,63 @@ def _signal(seed, C_, n_sym, snr_db=None, delay=0):
     return re, im
 
 
+def _jax_metric_sums(re, im, sps=2):
+    """The JAX demod's per-phase |sin 2θ| over samples t < (T//sps)·sps,
+    summed (dqpsk._stream_phasors' score times the symbol count), from
+    its own matched filter: [C, sps]."""
+    taps = j_dqpsk.rrc_taps(sps)
+    fr = j_dqpsk._fir_real(jnp.asarray(re), taps)
+    fi = j_dqpsk._fir_real(jnp.asarray(im), taps)
+    lr = jnp.pad(fr, ((0, 0), (sps, 0)))[:, :-sps]
+    li = jnp.pad(fi, ((0, 0), (sps, 0)))[:, :-sps]
+    dr, di = fr * lr + fi * li, fi * lr - fr * li
+    n_ = (dr.shape[-1] // sps) * sps
+    dr = dr[:, :n_].reshape(dr.shape[0], -1, sps)
+    di = di[:, :n_].reshape(di.shape[0], -1, sps)
+    s = 2.0 * jnp.abs(dr * di) / (dr * dr + di * di + 1e-12)
+    return np.asarray(jnp.sum(s, axis=-2))
+
+
 @pytest.mark.parametrize("case", ["clean", "timing_offset", "ragged",
-                                  "single_block", "snr8"])
+                                  "single_block", "snr8", "odd_T",
+                                  "one_carrier"])
 def test_k5_plain_vs_xla_and_pallas(case):
-    """K5's plain version == dqpsk.demodulate_hard_ri (XLA) and the
-    Pallas kernel in interpret mode: identical bits, and at 8 dB at most
-    1e-3 of the decisions differ."""
+    """K5's plain version (bits, best, met) == dqpsk.demodulate_hard_ri
+    (XLA) and the Pallas kernel in interpret mode: identical bits and
+    phase picks, and at 8 dB at most 1e-3 of the decisions differ; met
+    equal to the JAX demod's metric sums to f32 rounding. Covers T odd,
+    T < 256, T not a multiple of the kernel's 2048-sample tile, C = 1."""
     seed, C_, n_sym, snr, delay, tc, tt = {
         "clean": (11, 5, 700, None, 0, 4, 256),
         "timing_offset": (13, 4, 500, None, 1, 4, 256),
         "ragged": (14, 7, 301, None, 0, 4, 256),
         "single_block": (15, 2, 64, None, 0, 2, 512),
-        "snr8": (12, 6, 700, 8.0, 0, 8, 256)}[case]
+        "snr8": (12, 6, 700, 8.0, 0, 8, 256),
+        "odd_T": (17, 3, 301, None, 0, 4, 256),
+        "one_carrier": (18, 1, 1500, None, 1, 1, 512)}[case]
     re, im = _signal(seed, C_, n_sym, snr, delay)
-    got = n(demod_fused.demodulate_hard_ri_pallas(t(re), t(im)))
+    if case == "odd_T":
+        re, im = re[:, :-1].copy(), im[:, :-1].copy()
+        n_sym -= 1
+    bits, best, met = (n(x) for x in demod_fused.demod_fused(t(re), t(im)))
     xla = np.asarray(j_dqpsk.demodulate_hard_ri(jnp.asarray(re),
                                                 jnp.asarray(im)))
     pal = np.asarray(j_dp.demodulate_hard_ri_pallas(
         jnp.asarray(re), jnp.asarray(im), tile_c=tc, tile_t=tt,
         interpret=True))
-    assert got.shape == xla.shape == (C_, 2 * n_sym)
+    sel = np.asarray(j_dp._demod_sel(jnp.asarray(re), jnp.asarray(im),
+                                     tile_c=tc, tile_t=tt, interpret=True))
+    assert bits.shape == xla.shape == (C_, 2 * n_sym)
     if snr is None:
-        assert np.array_equal(got, xla) and np.array_equal(got, pal)
+        assert np.array_equal(bits, xla) and np.array_equal(bits, pal)
+        assert np.array_equal(sel, bits[:, 0::2] | (bits[:, 1::2] << 1))
     else:
-        assert np.mean(got != xla) <= 1e-3 and np.mean(got != pal) <= 1e-3
-    sel = n(demod_fused._demod_sel(t(re), t(im)))
-    assert np.array_equal(sel, got[:, 0::2] | (got[:, 1::2] << 1))
+        assert np.mean(bits != xla) <= 1e-3 and np.mean(bits != pal) <= 1e-3
+    want = _jax_metric_sums(re, im)
+    assert np.array_equal(best, np.argmax(want, axis=-1))
+    np.testing.assert_allclose(met, want, rtol=1e-5)
+    assert np.array_equal(n(demod_fused.demodulate_hard_ri_pallas(
+        t(re), t(im))), bits)
 
 
 def test_k5_slot_framed_output():
@@ -77,6 +108,9 @@ def test_k5_slot_framed_output():
         tile_c=4, tile_t=256, interpret=True)
     assert np.array_equal(n(slots), np.asarray(js))
     assert np.array_equal(n(bits), np.asarray(jb))
+    # the slots are a view of the bits: no second write
+    assert slots.data_ptr() == bits.data_ptr() + phase_bit
+    assert not slots.is_contiguous()
     with pytest.raises(ValueError):
         demod_fused.demodulate_hard_slots_ri_pallas(t(re), t(im), n_slots,
                                                     phase_bit=63)

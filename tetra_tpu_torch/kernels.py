@@ -41,10 +41,13 @@ _SIGNATURES = {
                              _I, _P],
     "tt_viterbi_segmented_occupancy": [_I, _I, _P],
     "tt_viterbi_decode": [_P, _P, _I, _P, _I, _I, _P],
-    "tt_pfb_wola": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "tt_pfb_wola": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "tt_pfb_wola_occupancy": [_I, _P],
     "tt_resample_rows": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _I,
                          _P],
-    "tt_demod_fused": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "tt_demod_fused": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I,
+                       _P],
+    "tt_demod_fused_occupancy": [_P],
     "tt_error_string": [_I],
 }
 
@@ -118,7 +121,7 @@ def stream_ptr(device: torch.device) -> int:
 
 
 def occupancy(name: str, *args: int) -> dict:
-    """Launch shape of a lane-group kernel (K1, K4) at the given
+    """Launch shape of a kernel (K1, K2, K4, K5) at the given
     arguments: the exported `<name>_occupancy` fills resident blocks per
     SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers per
     thread and shared bytes per block (cudaFuncGetAttributes plus the

@@ -10,8 +10,9 @@ picked by the |sin 2θ| metric over the whole chunk, and sign decisions
 slotwise demods re-pick the timing phase and correct the residual
 carrier phase per slot, for degraded signals on the steady chain.
 
-Plain PyTorch. demodulate_hard_ri at os=1 is also the plain version of
-kernel K5 (phy.demod_fused), which fuses that demod on the card.
+Plain PyTorch. demodulate_hard_ri at os=1 is the demod that kernel K5
+(phy.demod_fused) fuses on the card; its plain version there is built
+from _stream_score, _timing_metric, _select and _hard_bits.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["rrc_taps", "_band_matrix", "modulate", "bits_to_phase",
-           "_fir_real", "_stream_score", "_stream_phasors",
+           "_fir_real", "_stream_score", "_timing_metric", "_select",
+           "_stream_phasors", "_hard_bits",
            "demodulate_hard_ri", "demodulate_soft_ri",
            "demodulate_hard_slotwise_ri", "demodulate_soft_slotwise_ri"]
 
@@ -126,20 +128,37 @@ def _stream_score(re, im, sps: int, os: int):
     n = (dr.shape[-1] // sps2) * sps2
     drp = dr[:, :n].reshape(C, n // sps2, sps2)
     dip = di[:, :n].reshape(C, n // sps2, sps2)
-    mag2 = drp * drp + dip * dip
-    score = torch.mean(2.0 * torch.abs(drp * dip) / (mag2 + 1e-12), dim=-2)
+    score = torch.mean(_timing_metric(drp, dip), dim=-2)
     return drp, dip, score
+
+
+def _timing_metric(dr, di):
+    """|sin 2θ| of the differential phasor, per sample: 2|dr·di| / |d|²."""
+    mag2 = dr * dr + di * di
+    return 2.0 * torch.abs(dr * di) / (mag2 + 1e-12)
+
+
+def _select(drp, dip, best):
+    """Phasors [C, n_sym, phases] at each carrier's phase best [C] ->
+    (sel_r, sel_i) [C, n_sym]."""
+    C, n_sym = drp.shape[:2]
+    idx = best[:, None, None].expand(C, n_sym, 1)
+    return drp.gather(2, idx)[..., 0], dip.gather(2, idx)[..., 0]
 
 
 def _stream_phasors(re, im, sps: int, os: int):
     """Per-carrier timing-phase pick over the whole stream: re, im
     [C, T] -> selected differential phasors (sel_r, sel_i) [C, T//sps]."""
     drp, dip, score = _stream_score(re, im, sps, os)
-    C, n_sym = drp.shape[:2]
-    best = torch.argmax(score, dim=-1)
-    sel_r = drp.gather(2, best[:, None, None].expand(C, n_sym, 1))[..., 0]
-    sel_i = dip.gather(2, best[:, None, None].expand(C, n_sym, 1))[..., 0]
-    return sel_r, sel_i
+    return _select(drp, dip, torch.argmax(score, dim=-1))
+
+
+def _hard_bits(sel_r, sel_i) -> torch.Tensor:
+    """Sign decisions b0 = (Im d <= 0), b1 = (Re d < 0), interleaved:
+    [C, n_sym] -> ubits [C, 2·n_sym] int8."""
+    b0 = (sel_i <= 0).to(torch.int8)
+    b1 = (sel_r < 0).to(torch.int8)
+    return torch.stack([b0, b1], dim=-1).reshape(sel_r.shape[0], -1)
 
 
 def demodulate_hard_ri(re, im, sps: int = 2, os: int = 1) -> torch.Tensor:
@@ -148,10 +167,7 @@ def demodulate_hard_ri(re, im, sps: int = 2, os: int = 1) -> torch.Tensor:
     [C, 2*(T//sps)] int8. os > 1 adds fractional timing (os=4 on the
     wideband path, where resampling leaves the symbol clock at an
     arbitrary offset)."""
-    sel_r, sel_i = _stream_phasors(re, im, sps, os)
-    b0 = (sel_i <= 0).to(torch.int8)
-    b1 = (sel_r < 0).to(torch.int8)
-    return torch.stack([b0, b1], dim=-1).reshape(re.shape[0], -1)
+    return _hard_bits(*_stream_phasors(re, im, sps, os))
 
 
 def demodulate_soft_ri(re, im, sps: int = 2, os: int = 1) -> torch.Tensor:
@@ -219,8 +235,7 @@ def _slotwise_phasors(re, im, n_slots: int, phase_bit: int, sps: int):
     se = torch.sin(-eps)[..., None, :]
     cr = dr * ce - di * se
     ci = dr * se + di * ce
-    mag2 = cr * cr + ci * ci
-    score = torch.mean(2.0 * torch.abs(cr * ci) / (mag2 + 1e-12), dim=-2)
+    score = torch.mean(_timing_metric(cr, ci), dim=-2)
     best = torch.argmax(score, dim=-1)                  # [C, S]
     idx = best[..., None, None].expand(Cn, n_slots, 255, 1)
     return cr.gather(3, idx)[..., 0], ci.gather(3, idx)[..., 0]

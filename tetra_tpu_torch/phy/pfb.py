@@ -25,7 +25,8 @@ from torch import nn
 from tetra_tpu_torch import kernels
 from tetra_tpu_torch.phy.channelizer import DEMOD_RATE, _resample_block_plan
 
-__all__ = ["pfb_prototype", "_dft_matrices", "PfbFrontEnd",
+__all__ = ["pfb_prototype", "_dft_matrices", "_twiddles", "_fft_plan",
+           "PfbFrontEnd",
            "pfb_channelize_rows", "pfb_channelize_rows_plain",
            "resample_rows", "resample_rows_plain", "pfb_to_demod_rate_ri"]
 
@@ -47,6 +48,42 @@ def _dft_matrices(n_chan: int):
     k = np.arange(n_chan)
     ang = 2.0 * np.pi * np.outer(k, k) / n_chan
     return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _twiddles(n_chan: int):
+    """(cos, sin) of 2π e / C, e = 0..C-1, float32 [C]."""
+    e = 2.0 * np.pi * np.arange(n_chan) / n_chan
+    return np.cos(e).astype(np.float32), np.sin(e).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _fft_plan(n_chan: int):
+    """Kernel K2's FFT for a power-of-two C (csrc/pfb_wola.cu make_plan):
+    the radices of its Stockham passes (32 while 32 divides what is left,
+    then the rest) and the twiddle table of passes p > 0, one after
+    another, entry [r·Ns + i] of pass p = (cos, sin)(2π i r / (Ns R)),
+    Ns the product of the earlier radices, taken from the C-point table
+    _twiddles at e = i·r·C/(Ns R): (radices, float32 [L, 2]). C not a
+    power of two: no passes (the kernel's direct DFT reads _twiddles)."""
+    if n_chan & (n_chan - 1):
+        return (), np.zeros((0, 2), np.float32)
+    radices, n = [], n_chan
+    while n > 1:
+        radices.append(32 if n % 32 == 0 else n)
+        n //= radices[-1]
+    twc, tws = _twiddles(n_chan)
+    parts, Ns = [np.zeros((0, 2), np.float32)], radices[0]
+    for R in radices[1:]:
+        e = np.arange(R)[:, None] * np.arange(Ns)[None] * (n_chan // (Ns * R))
+        parts.append(np.stack([twc[e], tws[e]], -1).reshape(-1, 2))
+        Ns *= R
+    return tuple(radices), np.concatenate(parts)
+
+
+@functools.lru_cache(maxsize=8)
+def _fft_table(n_chan: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_fft_plan(n_chan)[1], device=device)
 
 
 def _n_frames(T: int, n_chan: int, J: int) -> int:
@@ -81,7 +118,8 @@ def pfb_channelize_rows_plain(re, im, h, n_chan: int, J: int):
 def pfb_channelize_rows(re, im, h, twc, tws, n_chan: int, J: int):
     """K2: planar wideband [T] float32 -> channel frames ([M, C], [M, C])
     time-major, M = (T - J·C)/(C/2) + 1. A stream shorter than one
-    filter length is zero-padded to it (one frame)."""
+    filter length is zero-padded to it (one frame). The kernel takes
+    J = 16 (the prototype's width) and even C up to 4096."""
     T = re.shape[0]
     if T < n_chan * J:
         re = F.pad(re, (0, n_chan * J - T))
@@ -97,13 +135,17 @@ def pfb_channelize_rows(re, im, h, twc, tws, n_chan: int, J: int):
             raise ValueError(f"{name} must have {n} entries")
     if im.shape != re.shape:
         raise ValueError("re and im differ in shape")
+    if J != 16 or n_chan % 2 or not 2 <= n_chan <= 4096:
+        raise ValueError(f"pfb_channelize_rows: the kernel takes J 16 and "
+                         f"even C up to 4096, got J {J}, C {n_chan}")
     M = _n_frames(re.shape[0], n_chan, J)
     yr = torch.empty((M, n_chan), dtype=torch.float32, device=re.device)
     yi = torch.empty_like(yr)
+    tw = _fft_table(n_chan, re.device)
     rc = kernels.lib().tt_pfb_wola(
-        re.data_ptr(), im.data_ptr(), h.data_ptr(), twc.data_ptr(),
-        tws.data_ptr(), yr.data_ptr(), yi.data_ptr(), M, n_chan, J,
-        kernels.stream_ptr(re.device))
+        re.data_ptr(), im.data_ptr(), h.data_ptr(), tw.data_ptr(),
+        twc.data_ptr(), tws.data_ptr(), yr.data_ptr(), yi.data_ptr(), M,
+        n_chan, J, kernels.stream_ptr(re.device))
     kernels.check(rc, "tt_pfb_wola")
     pfb_channelize_rows.launches += 1
     return yr, yi
@@ -202,11 +244,11 @@ class PfbFrontEnd(nn.Module):
             raise ValueError("PFB path needs a rational channel/demod rate")
         W, self.bmin, _, self.L, self.M, _, _ = plan
         taps, off = _live_taps(W, self.bmin)
-        e = 2.0 * np.pi * np.arange(n_chan) / n_chan
+        twc, tws = _twiddles(n_chan)
         self.register_buffer("h", torch.tensor(
             pfb_prototype(n_chan, taps_per_branch)))
-        self.register_buffer("twc", torch.tensor(np.cos(e).astype(np.float32)))
-        self.register_buffer("tws", torch.tensor(np.sin(e).astype(np.float32)))
+        self.register_buffer("twc", torch.tensor(twc))
+        self.register_buffer("tws", torch.tensor(tws))
         self.register_buffer("W", torch.tensor(W))
         self.register_buffer("rs_taps", torch.tensor(taps))
         self.register_buffer("rs_off", torch.tensor(off))

@@ -6,7 +6,9 @@ two padded 16-frame protocol-mix rows of tools/bench_mc_e2e.mixed_batch
 noise-window length the rolls are confined to, the JAX package's
 recorded decode counts for the 1024-carrier production stage, and the
 traffic dump and voice files its bits path writes for one plain and one
-encrypted carrier (`expected_traffic`). From them
+encrypted carrier (`expected_traffic`), and its wideband path's stats
+and files on 8 named carriers of the 1024-carrier capture
+(`wideband_record`). From them
 this module rebuilds the bench's companded wideband capture with numpy
 copies of the fixture chain: safe_rolls -> dqpsk.modulate ->
 channelizer.synthesize_wideband_fft -> stream.quantize_iq4c.
@@ -35,7 +37,7 @@ from tetra_tpu_torch.phy.dqpsk import modulate
 __all__ = ["DATA_PATH", "SNR8_PATH", "KEYSTORE", "BITRATE", "load",
            "load_snr8", "safe_rolls", "mixed_bits", "wideband_capture",
            "snr8_bits", "snr8_capture", "keystore_file", "run_receiver",
-           "expected_traffic", "read_tree"]
+           "expected_traffic", "wideband_record", "read_tree"]
 
 DATA_PATH = pathlib.Path(__file__).parent / "data" / "prod_mixed.npz"
 SNR8_PATH = pathlib.Path(__file__).parent / "data" / "snr8_clean.npz"
@@ -74,6 +76,22 @@ def expected_traffic(fx: dict) -> dict:
         tag, fname = str(name).split("/", 1)
         out[tag][fname] = blob[end - size:end]
     return out
+
+
+def wideband_record(fx: dict) -> dict:
+    """The JAX wideband path's per-carrier record on the 1024-carrier
+    capture (tools/make_torch_fixture.py wideband_parity): {channel:
+    ((bursts, crc_ok, crc_wrong), {dump file name: bytes})}."""
+    files = {int(c): {} for c in fx["jax_wideband_channels"]}
+    ends = np.cumsum(fx["jax_wideband_traffic_sizes"])
+    blob = fx["jax_wideband_traffic_bytes"].tobytes()
+    for name, end, size in zip(fx["jax_wideband_traffic_names"], ends,
+                               fx["jax_wideband_traffic_sizes"]):
+        ch, fname = str(name).split("/", 1)
+        files[int(ch)][fname] = blob[end - size:end]
+    return {int(c): (tuple(int(v) for v in st), files[int(c)])
+            for c, st in zip(fx["jax_wideband_channels"],
+                             fx["jax_wideband_stats"])}
 
 
 def read_tree(root) -> dict:

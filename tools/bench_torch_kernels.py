@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Times kernels K1 and K4 and the steady-4096 pass of one checkout on
-the card, for comparing two trees in one session.
+"""Times the port's kernels K1, K2, K4, K5 (with K7's stage bisect) and
+the steady-4096 pass of one checkout on the card, for comparing two
+trees in one session.
 
-    python3 tools/bench_torch_viterbi.py [--repo PATH] [--reps N]
+    python3 tools/bench_torch_kernels.py [--repo PATH] [--reps N]
                                          [--no-steady]
 
 --repo names the checkout whose `tetra_tpu_torch` is imported and built
@@ -15,19 +16,27 @@ parent in one call. Prints one JSON line:
   K 512, restarts at 80/144/224), 80 (SB1, K 120) and 144 (NDB, K 216),
   on 20,000 and 262,144 rows of random signs; K4 (`decode_segmented_k4`)
   at n_sym 288 on 21,504 rows of the soft path's alphabet with random
-  restarts, and at n_sym 80 on 32 rows. Each as the CUDA-event mean over
-  `reps` launches after a warm-up (tools/profile_torch_demod.cuda_ms,
-  `ms`) and as the kernel's own device time from torch.profiler
-  (`device_ms`), with its bound computed as chip_smoke.py computes it
-  and, where the tree exports it, the kernel's occupancy;
+  restarts, and at n_sym 80 on 32 rows;
+- K2 (`pfb_channelize_rows`) at the prod-1024 shape: C 1024 on
+  6,672,000 samples of Gaussian noise (one chunk and its overlap-save
+  history), and `torch.fft.fft` over the [M, C] complex frames alone;
+- K5 at the steady shape [4096, 32,768] (the clean steady capture):
+  `demod_fused` (the kernel's launch) and `demodulate_hard_ri_pallas`
+  (the wrapper the steady chain calls), and K7's stage bisect
+  (tools/profile_torch_demod.stage_times at 512 and 4,096 carriers);
+- each as the CUDA-event mean over `reps` launches after a warm-up
+  (tools/profile_torch_demod.cuda_ms, `ms`) and as the kernel's own
+  device time from torch.profiler (`device_ms`), with its bound computed
+  as chip_smoke.py computes it and, where the tree exports it, the
+  kernel's occupancy;
 - with the steady pass: `wall_s` of locked_step_ri(fast="pallas") on
   4096 clean carriers x 64 slots under decoders=("fused",) and the
   default three, one warm pass and then `reps` timed passes each, and
   the CRC-OK count of the last.
 
-The inputs come from fixed seeds, so both trees decode the same rows;
-the Viterbi kernels run every step whatever the data, so random rows
-time as real ones do.
+The inputs come from fixed seeds, so both trees see the same data; the
+Viterbi kernels run every step whatever the data, so random rows time
+as real ones do.
 """
 import argparse
 import importlib.util
@@ -98,15 +107,68 @@ def k4_case(dev, rows: int, n_sym: int, bnd: tuple):
     return x.to(dev), rm.to(dev)
 
 
-def steady(dev, reps: int) -> dict:
+def occupancy(kernels, name: str, *args):
+    """kernels.occupancy where the tree exports `<name>_occupancy`, else
+    None (a parent tree may not)."""
+    occ = getattr(kernels, "occupancy", None)
+    if occ is None or not hasattr(kernels.lib(), f"{name}_occupancy"):
+        return None
+    return occ(name, *args)
+
+
+def k2(dev, cs, kernels, reps: int) -> dict:
+    """K2 at the prod-1024 shape, and the DFT stage alone."""
+    import torch
+    from profile_torch_demod import cuda_ms
+    from tetra_tpu_torch.phy.pfb import PfbFrontEnd, pfb_channelize_rows
+    n_chan, T = 1024, 6_672_000
+    fe = PfbFrontEnd(n_chan, 25_000.0 * n_chan).to(dev)
+    g = torch.Generator().manual_seed(1)
+    re = torch.randn(T, generator=g).to(dev)
+    im = torch.randn(T, generator=g).to(dev)
+    run = lambda: pfb_channelize_rows(re, im, fe.h, fe.twc, fe.tws, n_chan,
+                                      fe.J)
+    yr, yi = run()
+    z = torch.complex(yr, yi)
+    return {"n_chan": n_chan, "samples": T, "frames": int(yr.shape[0]),
+            "ms": cuda_ms(run, reps), "device_ms": device_ms(run, reps,
+                                                             "pfb_wola"),
+            "dft_only_ms": cuda_ms(lambda: torch.fft.fft(z, dim=1), reps),
+            **cs.k2_bound(n_chan, T, int(yr.shape[0]), fe.J),
+            "occupancy": occupancy(kernels, "tt_pfb_wola", n_chan)}
+
+
+def k5(dev, cs, kernels, re, im, reps: int) -> dict:
+    """K5 at the steady shape: its launch alone and the steady chain's
+    wrapper; then K7's stage bisect."""
+    from profile_torch_demod import cuda_ms, stage_times
+    from tetra_tpu_torch.phy import demod_fused
+    kern = lambda: demod_fused.demod_fused(re, im)
+    wrap = lambda: demod_fused.demodulate_hard_ri_pallas(re, im)
+    return {"carriers": int(re.shape[0]), "samples": int(re.shape[1]),
+            "kernel_ms": cuda_ms(kern, reps),
+            "kernel_device_ms": device_ms(kern, reps, "demod_fused"),
+            "wrapper_ms": cuda_ms(wrap, reps),
+            "wrapper_device_ms": device_ms(wrap, reps, ""),
+            **cs.k5_bound(re.numel()),
+            "occupancy": occupancy(kernels, "tt_demod_fused"),
+            "k7": stage_times(dev, reps=reps)}
+
+
+def steady_planes(dev):
+    """The clean steady capture at 4096 carriers on dev: (fx, re, im)."""
+    import torch
+    from tetra_tpu_torch import steady_fixture as sf
+    fx = sf.load()
+    re_np, im_np = sf.capture(4096, fx=fx)
+    return (fx, torch.as_tensor(re_np, device=dev),
+            torch.as_tensor(im_np, device=dev))
+
+
+def steady(dev, fx, re, im, reps: int) -> dict:
     import torch
     from tetra_tpu_torch import steady_fixture as sf
     from tetra_tpu_torch.lmac.steady import locked_step_ri
-    fx = sf.load()
-    re_np, im_np = sf.capture(4096, fx=fx)
-    re = torch.as_tensor(re_np, device=dev)
-    im = torch.as_tensor(im_np, device=dev)
-    del re_np, im_np
     inits = torch.full((4096,), fx["init"], dtype=torch.int64, device=dev)
     res = {}
     for name, dec in (("fused", ("fused",)), ("all3", ("sync", "schf", "ndb"))):
@@ -136,7 +198,7 @@ def main() -> int:
     sys.path[:0] = [str(repo), str(HERE)]
     import torch
     if not torch.cuda.is_available():
-        print("bench_torch_viterbi: no CUDA card", file=sys.stderr)
+        print("bench_torch_kernels: no CUDA card", file=sys.stderr)
         return 2
     cs = _chip_smoke()
     # the package first: profile_torch_demod puts this tree's root on
@@ -151,7 +213,6 @@ def main() -> int:
     kernels.lib()
     res = {"repo": str(repo), "card": cs.smi(),
            "build_s": time.perf_counter() - t0, "k1": {}, "k4": {}}
-    occ = getattr(kernels, "occupancy", None)
     for rows in (20_000, 262_144):
         for name, code, x, tab, rm in k1_cases(dev, rows):
             n = rows
@@ -162,10 +223,10 @@ def main() -> int:
                            + n * (code.n_sym + len(code.crc_segs)),
                            cs.viterbi_ops(n, code.n_sym, 4) + n * code.n_sym,
                            cs.INT32_OPS)}
-            if occ and rows == 20_000:
-                res["k1"][f"{name}_{rows}"].update(occ(
-                    "tt_viterbi_assembled", x.shape[1], code.pidx.shape[0],
-                    code.n_sym))
+            if rows == 20_000:
+                res["k1"][f"{name}_{rows}"]["occupancy"] = occupancy(
+                    kernels, "tt_viterbi_assembled", x.shape[1],
+                    code.pidx.shape[0], code.n_sym)
             del x, tab, rm
     for name, rows, ns, bnd in (("n288", 21_504, 288, (80, 144, 224)),
                                 ("n80", 32, 80, ())):
@@ -177,12 +238,16 @@ def main() -> int:
             "device_ms": device_ms(lambda: decode_segmented_k4(x, rm, ns, bnd),
                                    args.reps),
             **cs.bound(4 * rows * 4 * ns + rm.numel() + rows * ns,
-                       cs.viterbi_ops(rows, ns, 4), cs.F32_OPS)}
-        if occ:
-            res["k4"][name].update(occ("tt_viterbi_segmented", 4, ns))
+                       cs.viterbi_ops(rows, ns, 4), cs.F32_OPS),
+            "occupancy": occupancy(kernels, "tt_viterbi_segmented", 4, ns)}
+    torch.cuda.empty_cache()
+    res["k2"] = k2(dev, cs, kernels, args.reps)
+    torch.cuda.empty_cache()
+    fx, re, im = steady_planes(dev)
+    res["k5"] = k5(dev, cs, kernels, re, im, args.reps)
     if not args.no_steady:
         torch.cuda.empty_cache()
-        res["steady"] = steady(dev, args.reps)
+        res["steady"] = steady(dev, fx, re, im, args.reps)
     print(json.dumps(res), flush=True)
     return 0
 

@@ -18,7 +18,10 @@ dumpdir and decode_voice=True on the first (plain) and the last
 (TEA1-encrypted) of the 1024 rolled rows: every file name and its
 bytes, per row type. The rolls keep each carrier's slots inside its
 stream, so every plain carrier writes the plain row's files and every
-encrypted carrier the encrypted row's.
+encrypted carrier the encrypted row's. `parity` adds, in place, the JAX
+wideband path's per-carrier stats and dump files on 8 carriers of the
+1024-carrier capture (wideband_parity); run it after `prod`, which
+rewrites the file without them.
 
 snr8_clean.npz holds the padded clean 16-frame SYNC/SCH_F row of
 bench_mc_e2e.run_snr8 (bit-packed), its n_tail, the SNR, and the JAX
@@ -35,7 +38,7 @@ scrambling code, and each slot's expected kind and type-1 payloads; the
 Runs on the CPU with jax (the rows come from tetra_tpu's TX chain);
 the argument picks one file (default: all):
 
-    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [prod|snr8|steady]
+    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [prod|parity|snr8|steady]
 """
 import contextlib
 import os
@@ -186,6 +189,71 @@ def traffic_outputs(plain_row, enc_row) -> dict:
 SNR8 = {"snr_db": 8.0, "snr8_crc_ok": 74_343, "snr8_crc_err": 410,
         "clean_crc_ok": 81_920}
 
+# prod-1024 carriers whose per-carrier result the JAX wideband path is
+# asked for: 304 and 610 decode fewer blocks than the bits path; the
+# other six carry one raw traffic-bit error each in the port's dumps
+PARITY_CHANNELS = (304, 610, 291, 337, 419, 518, 628, 989)
+
+
+def wideband_parity(channels=PARITY_CHANNELS) -> dict:
+    """The JAX package's wideband path (PFB front end, native plane,
+    keystore) on the 1024-carrier production capture, built by the
+    port's numpy capture code exactly as chip_smoke.py makes it, fed in the
+    4 process_iq4c cuts of prod_fixture.run_receiver, with only
+    `channels` synchronised and decoded (the PFB computes every bin).
+    Dumps and voice are on, under jax_short_row_dumps. Returns the npz
+    arrays jax_wideband_channels [n], jax_wideband_stats [n, 3]
+    (bursts, crc_ok, crc_wrong) and jax_wideband_traffic_{names,sizes,
+    bytes} ('<channel>/<file>', as traffic_outputs stores its files)."""
+    import tempfile
+    import time
+    from tetra_tpu.rx_multi import MultiCarrierReceiver
+    from tetra_tpu_torch import prod_fixture
+    fx = prod_fixture.load()
+    bits, _ = prod_fixture.mixed_bits(1024, 0.1, fx)
+    packed = prod_fixture.wideband_capture(bits)
+    cuts = np.linspace(0, len(packed), 5).astype(int)
+    names, blobs = [], []
+    with prod_fixture.keystore_file() as ks, \
+            tempfile.TemporaryDirectory() as tmp, jax_short_row_dumps():
+        mc = MultiCarrierReceiver([], fs=25_000.0 * 1024,
+                                  pfb_channels=np.asarray(channels, np.int32),
+                                  n_chan=1024, control_plane="native",
+                                  keystore_path=ks, dumpdir=tmp,
+                                  decode_voice=True)
+        for k in range(4):
+            t0 = time.perf_counter()
+            mc.process_iq4c(packed[cuts[k]:cuts[k + 1]], final=k == 3)
+            print(f"chunk {k}: {time.perf_counter() - t0:.1f} s", flush=True)
+        stats = np.asarray([(c.stats.bursts, c.stats.crc_ok,
+                             c.stats.crc_wrong) for c in mc.carriers],
+                           np.int32)
+        for i, ch in enumerate(channels):
+            d = pathlib.Path(tmp) / f"carrier{i}"
+            for f in sorted(d.iterdir()) if d.exists() else ():
+                names.append(f"{ch}/{f.name}")
+                blobs.append(f.read_bytes())
+    return {"jax_wideband_channels": np.asarray(channels, np.int32),
+            "jax_wideband_stats": stats,
+            "jax_wideband_traffic_names": np.asarray(names),
+            "jax_wideband_traffic_sizes": np.asarray([len(b) for b in blobs],
+                                                     np.int64),
+            "jax_wideband_traffic_bytes": np.frombuffer(b"".join(blobs),
+                                                        np.uint8)}
+
+
+def main_parity(out=ROOT / "tetra_tpu_torch" / "data" / "prod_mixed.npz"):
+    """Add wideband_parity's arrays to the production fixture in place
+    (every other array is kept as it is)."""
+    rec = wideband_parity()
+    with np.load(out) as z:
+        keep = {k: z[k] for k in z.files if k not in rec}
+    np.savez_compressed(out, **keep, **rec)
+    print("jax wideband stats:", dict(zip(
+        rec["jax_wideband_channels"].tolist(),
+        rec["jax_wideband_stats"].tolist())))
+    print(f"wrote {out} ({out.stat().st_size} bytes)")
+
 
 def snr8_row(seed: int = 0):
     """The padded clean row and n_tail, as bench_mc_e2e.run_snr8 builds
@@ -299,11 +367,13 @@ def main(out=ROOT / "tetra_tpu_torch" / "data" / "prod_mixed.npz"):
 
 
 if __name__ == "__main__":
-    which = sys.argv[1:] or ["prod", "snr8", "steady"]
-    if not set(which) <= {"prod", "snr8", "steady"}:
-        sys.exit(f"usage: {sys.argv[0]} [prod|snr8|steady]")
+    which = sys.argv[1:] or ["prod", "parity", "snr8", "steady"]
+    if not set(which) <= {"prod", "parity", "snr8", "steady"}:
+        sys.exit(f"usage: {sys.argv[0]} [prod|parity|snr8|steady]")
     if "prod" in which:
         main()
+    if "parity" in which:
+        main_parity()
     if "snr8" in which:
         main_snr8()
     if "steady" in which:

@@ -5,10 +5,12 @@ shapes: one random-bit row of n_sym = 64·255 + 64 symbols (T = 32,768
 samples at sps 2) tiled over C = 512 and 4,096 carriers. Three stages,
 each a mean of CUDA-event times after a warm-up:
 
-  plain    dqpsk.demodulate_hard_ri (os=1), K5's plain version;
+  plain    dqpsk.demodulate_hard_ri (os=1), the decisions of K5's
+           plain version;
   kernel   K5 alone (phy.demod_fused.demod_fused) on device-resident
-           planes: packed decisions and partial metric sums;
-  wrapper  demodulate_hard_ri_pallas: K5, phase pick, gather, unpack.
+           planes: bits of the picked phase, the pick, the metric sums;
+  wrapper  demodulate_hard_slots_ri_pallas at the steady chain's slot
+           framing (64 slots from bit 64): K5 and the slots as a view.
 
 For each stage it also reports the differential rate
 (C_big - C_small)·T / (t_big - t_small) in samples per second, as the
@@ -33,6 +35,7 @@ from tetra_tpu_torch.device import resolve_device
 from tetra_tpu_torch.phy import demod_fused, dqpsk
 
 N_SYM = 64 * 255 + 64
+N_SLOTS, PHASE_BIT = 64, 64
 CARRIERS = (512, 4096)
 
 
@@ -65,8 +68,8 @@ def stage_times(dev, carriers=CARRIERS, reps: int = 10,
     stages = {
         "plain": (lambda re, im: dqpsk.demodulate_hard_ri(re, im), plain_reps),
         "kernel": (lambda re, im: demod_fused.demod_fused(re, im), reps),
-        "wrapper": (lambda re, im: demod_fused.demodulate_hard_ri_pallas(
-            re, im), reps)}
+        "wrapper": (lambda re, im: demod_fused.demodulate_hard_slots_ri_pallas(
+            re, im, N_SLOTS, phase_bit=PHASE_BIT), reps)}
     ms = {}
     mismatches = max_abs = 0
     for cc in carriers:
@@ -74,11 +77,13 @@ def stage_times(dev, carriers=CARRIERS, reps: int = 10,
         im = row_im.expand(cc, T).contiguous()
         ms[cc] = {name: cuda_ms(lambda: fn(re, im), r)
                   for name, (fn, r) in stages.items()}
-        got = stages["wrapper"][0](re, im)
+        slots, got = stages["wrapper"][0](re, im)
         want = stages["plain"][0](re, im)
-        mismatches += int((got != want).sum())
+        mismatches += int((got != want).sum()) + int(
+            (slots.reshape(cc, -1)
+             != want[:, PHASE_BIT:PHASE_BIT + N_SLOTS * 510]).sum())
         max_abs = max(max_abs, int((got - want).abs().max()))
-        del re, im, got, want
+        del re, im, got, want, slots
         torch.cuda.empty_cache()
     lo, hi = carriers[0], carriers[-1]
     rates = {f"{name}_samples_per_s":

@@ -113,7 +113,7 @@ def main_steady(n_car: int, card: str):
     # top-level layers (their sum plus "rest" is the instrumented pass)
     # and K1 alone, which runs inside the FEC layers
     top = [(demod_fused, "demodulate_hard_slots_ri_pallas",
-            "demod (K5 + phase pick + gather + unpack + slot cut)"),
+            "demod (K5 with its phase pick and bits; slots a view)"),
            (steady, "verify_train_seq", "training-sequence check"),
            (fused, "decode_slots_fused", "fused FEC (assembly + K1 n288)"),
            (pipeline, "decode_sync_burst", "sync bursts (SB1, BBK, SB2)"),
