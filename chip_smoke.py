@@ -20,11 +20,6 @@ Phases (one JSON line each):
               counts 1, 3, 17, 3001; all-erasure rows; rows tied at a
               restart boundary; every subset of the restarts; K1's tab
               mixing every map), bit-identical.
-              K6 (unsegmented Viterbi) bit-identical at the voice
-              shape (3,072 rows, n_sym 112 and 72, speech code, half the
-              rows erasure-heavy) and at odd n_sym 77 (control code), 113
-              (speech code) and TCH/4.8's 292 (control code); times of
-              both.
   3. small    an 8-carrier production capture through the receiver on
               the card and on the CPU (plain versions): identical
               per-carrier stats and native event arrays.
@@ -50,14 +45,27 @@ Phases (one JSON line each):
               differ only in such a slot, and there it must equal the
               CPU plain chain's decode of the card's own bits); the 8
               recorded carriers' files equal to the JAX wideband path's.
+              K6's row count at each of its launches is counted from
+              the events (one chunk's full frames or NDB halves).
+     kernels  K6 (unsegmented Viterbi, 8 rows per block of K4's body)
+              bit-identical to its plain version at the voice pass's
+              own per-launch row counts (n_sym 112 and 72, speech code,
+              the voice alphabet) and on its edge cases (all-erasure
+              rows, rows zeroed before step n_sym // 2, multiples of
+              0.25) at row counts 1, 3, 17, 1000, 2000, 3001, 3072 and
+              n_sym 112, 72, 77, 113, 71, 292; times of both, and of an
+              empty kernel launch (K6's bound is below it).
   5. soft_small  the 8-carrier snr8 capture through the soft receiver
               (demod="soft") on the card and on the CPU: identical
               stats and events.
   6. snr8     the 1024-carrier clean SYNC/SCH_F capture with AWGN at
               8 dB per-channel SNR through the soft receiver (4 chunks),
               once warm and once timed; crc_ok >= 0.90 x 81,920, crc_err
-              <= 2 x the JAX record, and K1..K4 launched by the timed
-              run.
+              <= 2 x the JAX record, the stats of the 16 carriers the
+              fixture records equal to the JAX soft path's on the same
+              capture (prod_fixture.soft_record), and K1..K4 launched by
+              the timed run; the 5 carriers with the fewest CRC-OK
+              blocks and the 5 with the most CRC errors are listed.
   7. kernels  K5 (fused hard demod: bits of the picked phase, the pick,
               the metric sums) against its plain version at the steady
               chain's shape [4096, 32,768] (half the carriers with AWGN
@@ -83,9 +91,10 @@ Phases (one JSON line each):
 Then the kernel summary line (each kernel's launches on its main path,
 max_abs_err, ms, plain_ms, the bound computed from the run's shapes
 and what sets it, and library_ms: null, no single PyTorch call computes
-any of these functions; for K1, K2, K4 and K5 also resident blocks per
-SM, registers per thread and shared bytes per block at the main path's
-shape, and for K2 dft_only_ms), the nvidia-smi line, and last
+any of these functions; for K1, K2, K4, K5 and K6 also resident blocks
+per SM, registers per thread and shared bytes per block at the main
+path's shape, for K2 dft_only_ms and for K6 empty_launch_ms), the
+nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits nonzero without that line when
 there is no card, the build fails, or any check fails.
 """
@@ -103,7 +112,7 @@ TOL = 1e-4          # K2/K3: max |kernel - plain| <= TOL * max |plain|
 N_CAR = 1024
 N_CHUNKS = 4
 K4_ROWS = 21_504    # rows per chunk of the snr8 path's soft FEC
-K6_ROWS = 3_072     # traffic slots per chunk of the prod-1024 voice pass
+K6_ROWS = 3_072     # ~traffic slots per chunk of the prod-1024 voice pass
 CLEAN_CRC_OK = 81_920
 STEADY_CAR = 4096   # bench stage 3: 4096 carriers x 64 slots
 RAGGED = (1, 3, 17, 3001)   # K1/K4 row counts that fill no warp or block
@@ -505,43 +514,101 @@ def check_k4(dev, n_rows: int) -> dict:
     return res
 
 
-def check_k6(dev) -> dict:
-    """K6 vs its plain version, bits identical: at the voice shape
-    (K6_ROWS rows, n_sym 112 and 72, speech code; +-127 or 0 at random,
-    half the rows erasure-heavy (90% zeros), the first 8 all erasures:
-    pure ties) and at odd n_sym 77 (control code), 113 (speech code)
-    and TCH/4.8's 292 (control code) on 256 such rows."""
+def k6_edge_rows(x, n_sym: int, n_gen: int):
+    """K6's edge cases on soft rows x [B, n_sym*N] f32: every fifth row
+    all erasures (pure ties to the end), every fifth from the second zero
+    before step n_sym // 2 (a 16-way tie there), every fifth from the
+    third multiples of 0.25 in [-2, 2] (not integers; every f32 sum still
+    exact)."""
     import torch
+    x = x.clone()
+    x[::5] = 0
+    x[1::5, :n_gen * (n_sym // 2)] = 0
+    g = torch.Generator(device="cpu").manual_seed(x.shape[0] + n_sym)
+    x[2::5] = (torch.randint(-8, 9, x[2::5].shape, generator=g)
+               * 0.25).to(x.device)
+    return x
+
+
+def k6_rows(rows: int, n_sym: int, n_gen: int, seed: int, dev):
+    """rows x n_sym*N soft values of the voice alphabet (+-127 or 0 at
+    random), the first half erasure-heavy (90% zeros), on dev."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    w = n_sym * n_gen
+    x = (torch.randint(-1, 2, (rows, w), generator=g) * 127).float()
+    half = rows // 2
+    x[:half][torch.rand((half, w), generator=g) < 0.9] = 0
+    return x.to(dev)
+
+
+# K6's shapes: n_sym -> code (TCH/S classes 1 and 2, odd n_sym of both
+# codes, TCH/4.8), and its row counts that fill no block, warp or wave
+K6_SHAPES = {112: "tch", 72: "tch", 77: "cch", 113: "tch", 71: "tch",
+             292: "cch"}
+K6_RAGGED = (1, 3, 17, 1000, 2000, 3001, 3072)
+
+
+def check_k6(dev, voice_rows: list) -> dict:
+    """K6 vs its plain version, bits identical: at the voice pass's own
+    per-launch row counts (`voice_rows`, one chunk's full frames or NDB
+    halves, counted from the voice phase) at n_sym 112 and 72 (speech
+    code, the voice alphabet), and on k6_edge_rows at every K6_RAGGED
+    row count and K6_SHAPES n_sym. Times of both at the voice counts,
+    at K6_ROWS (n112, n72) and at 256 rows (n77, n113, n292): CUDA
+    events over back-to-back calls (`ms`, which the wrapper's host time
+    sets at these sizes) and the kernel's own time from torch.profiler
+    (`device_ms`); and of an empty kernel launch: the floor of any
+    one-launch design, K6's bound being below it."""
+    import torch
+    from bench_torch_kernels import device_ms
     from profile_torch_demod import cuda_ms
     from tetra_tpu_torch import constants as C
+    from tetra_tpu_torch import kernels
     from tetra_tpu_torch.ops.viterbi import decode
     from tetra_tpu_torch.ops.viterbi_decode import decode_k6
-    g = torch.Generator(device="cpu").manual_seed(13)
-    tch, cch = C.CONV_GENERATORS_TCH, C.CONV_GENERATORS_CCH
-    res = {"rows": K6_ROWS}
+    codes = {"tch": C.CONV_GENERATORS_TCH, "cch": C.CONV_GENERATORS_CCH}
+    res = {"rows": K6_ROWS, "voice_rows": sorted(set(voice_rows))}
     worst = 0
-    for name, rows, n_sym, gens in (("n112", K6_ROWS, 112, tch),
-                                    ("n72", K6_ROWS, 72, tch),
-                                    ("n77", 256, 77, cch),
-                                    ("n113", 256, 113, tch),
-                                    ("n292", 256, 292, cch)):
-        w = n_sym * len(gens)
-        x = (torch.randint(-1, 2, (rows, w), generator=g) * 127).float()
-        half = rows // 2
-        x[:half][torch.rand((half, w), generator=g) < 0.9] = 0
-        x[:8] = 0
-        x = x.to(dev)
+
+    def compare(x, n_sym, gens) -> int:
+        nonlocal worst
         bk, bp = decode_k6(x, n_sym, gens), decode(x, n_sym, gens)
-        res[f"mismatches_{name}"] = int((bk != bp).sum())
         worst = max(worst, int((bk.int() - bp.int()).abs().max()))
+        return int((bk != bp).sum())
+
+    edge = 0
+    for n_sym, code in K6_SHAPES.items():
+        gens = codes[code]
+        for rows in K6_RAGGED:
+            x = k6_rows(rows, n_sym, len(gens), rows + n_sym, dev)
+            edge += compare(k6_edge_rows(x, n_sym, len(gens)), n_sym, gens)
+    res["edge_mismatches"] = edge
+    timed = [(f"n{n}_{r}", r, n, "tch") for r in res["voice_rows"]
+             for n in (112, 72)]
+    timed += [("n112", K6_ROWS, 112, "tch"), ("n72", K6_ROWS, 72, "tch"),
+              ("n77", 256, 77, "cch"), ("n113", 256, 113, "tch"),
+              ("n292", 256, 292, "cch")]
+    for name, rows, n_sym, code in timed:
+        gens = codes[code]
+        w = n_sym * len(gens)
+        x = k6_rows(rows, n_sym, len(gens), 13 + rows + n_sym, dev)
+        x[:8] = 0
+        res[f"mismatches_{name}"] = compare(x, n_sym, gens)
         res[f"bound_{name}"] = bound(4 * rows * w + rows * n_sym,
                                      viterbi_ops(rows, n_sym, len(gens)),
                                      F32_OPS)
         res[f"ms_{name}"] = cuda_ms(lambda: decode_k6(x, n_sym, gens))
+        res[f"device_ms_{name}"] = device_ms(lambda: decode_k6(x, n_sym,
+                                                               gens), 10)
         res[f"plain_ms_{name}"] = cuda_ms(lambda: decode(x, n_sym, gens),
                                           reps=2)
+    stream = kernels.stream_ptr(dev)
+    res["empty_launch_ms"] = cuda_ms(
+        lambda: kernels.check(kernels.lib().tt_empty_launch(stream),
+                              "tt_empty_launch"), reps=100)
     res["max_abs_err"] = worst
-    if any(res[k] for k in res if k.startswith("mismatches_")):
+    if edge or any(res[k] for k in res if k.startswith("mismatches_")):
         raise AssertionError(f"K6 differs from its plain version: {res}")
     return res
 
@@ -699,6 +766,7 @@ def run_voice(ks_path: str, packed, n_enc: int, fx: dict, dev, card: str,
     import tempfile
     import numpy as np
     from tetra_tpu_torch import prod_fixture
+    from tetra_tpu_torch.umac.native_exec import EV
     want = prod_fixture.expected_traffic(fx)
     with tempfile.TemporaryDirectory() as tmp:
         reset_launches()
@@ -728,6 +796,13 @@ def run_voice(ks_path: str, packed, n_enc: int, fx: dict, dev, card: str,
                       "slots": {k: sorted(v) for k, v in d["out_slots"].items()}}
     record = prod_fixture.wideband_record(fx)
     wide_files = {c: per[c] == f for c, (_, f) in record.items()}
+    # K6's row count at each of its launches: per chunk, one voice decode
+    # (n112 and n72) of the full frames and one of the NDB halves
+    k6_groups = []
+    for evd in mrx.native_events:
+        tr = evd["kind"] == EV.TRAFFIC
+        half = int((evd["b"][tr] == 1).sum())
+        k6_groups += [r for r in (int(tr.sum()) - half, half) if r]
     n_slots = sum(len(v) // 1380 for k, v in files.items()
                   if k.endswith(".out"))
     raw_words = sum(r["words"] for r in raw.values())
@@ -747,12 +822,17 @@ def run_voice(ks_path: str, packed, n_enc: int, fx: dict, dev, card: str,
            "raw_bit_fraction": raw_words / max(n_slots * 432, 1),
            "carriers_bits_equal_files_differ": bad,
            "files_equal_jax_wideband": wide_files,
+           "k6_rows_per_launch": k6_groups,
            "launches": n_launch}
     if bad or res["raw_bit_fraction"] > RAW_BIT_LIMIT \
             or not all(wide_files.values()):
         raise AssertionError(f"voice: files differ from the fixture: {res}")
     if n_launch["viterbi_decode"] <= 0 or res["voice_frames"] <= 0:
         raise AssertionError(f"voice: K6 not launched: {res}")
+    if n_launch["viterbi_decode"] != 2 * len(k6_groups) \
+            or sum(k6_groups) != res["traffic_slots"]:
+        raise AssertionError(f"voice: K6's launches do not match the "
+                             f"traffic slots: {res}")
     return res
 
 
@@ -773,7 +853,12 @@ def check_soft_small(dev) -> dict:
 
 def run_snr8(dev, card: str) -> dict:
     """The 1024-carrier snr8 stage through the soft receiver: warm pass,
-    then a timed pass with the launch counts set to 0 just before it."""
+    then a timed pass with the launch counts set to 0 just before it.
+    The stats of the 16 carriers the fixture records must equal the JAX
+    soft path's (prod_fixture.soft_record); the 5 carriers with the
+    fewest CRC-OK blocks and the 5 with the most CRC errors are listed
+    (the record's carriers were chosen from these lists)."""
+    import numpy as np
     from tetra_tpu_torch import prod_fixture
     t0 = time.perf_counter()
     fx = prod_fixture.load_snr8()
@@ -786,8 +871,15 @@ def run_snr8(dev, card: str) -> dict:
     mrx, wall = prod_fixture.run_receiver(packed, N_CAR, None, dev,
                                           N_CHUNKS, "soft")
     n_launch = launches()
-    crc_ok = sum(c.stats.crc_ok for c in mrx.carriers)
-    crc_err = sum(c.stats.crc_wrong for c in mrx.carriers)
+    mine = np.asarray([(c.stats.bursts, c.stats.crc_ok, c.stats.crc_wrong)
+                       for c in mrx.carriers])
+    crc_ok = int(mine[:, 1].sum())
+    crc_err = int(mine[:, 2].sum())
+    soft = {c: {"port": mine[c].tolist(), "jax_soft": list(st)}
+            for c, st in prod_fixture.soft_record(fx).items()}
+    worst = lambda col, sign: {
+        int(c): mine[c].tolist()
+        for c in np.argsort(sign * mine[:, col], kind="stable")[:5]}
     jax_rec = {"crc_ok": int(fx["snr8_crc_ok"]),
                "crc_err": int(fx["snr8_crc_err"]),
                "crc_ok_frac": round(int(fx["snr8_crc_ok"])
@@ -799,12 +891,17 @@ def run_snr8(dev, card: str) -> dict:
            "realtime_carriers": N_CAR * T_bits / prod_fixture.BITRATE / wall,
            "card": card, "crc_ok": crc_ok, "crc_err": crc_err,
            "crc_ok_frac": crc_ok / CLEAN_CRC_OK, "jax_record": jax_rec,
+           "per_carrier_jax_soft": soft,
+           "fewest_crc_ok": worst(1, 1), "most_crc_wrong": worst(2, -1),
            "launches": n_launch}
     if min(n_launch[k] for k in ("viterbi_assembled", "pfb_wola",
                                  "resample_rows", "viterbi_segmented")) <= 0:
         raise AssertionError(f"a kernel was not launched: {n_launch}")
     if crc_ok < 0.90 * CLEAN_CRC_OK or crc_err > 2 * jax_rec["crc_err"]:
         raise AssertionError(f"snr8 decode outside its limits: {res}")
+    if any(v["port"] != v["jax_soft"] for v in soft.values()):
+        raise AssertionError(f"snr8: per-carrier stats differ from the JAX "
+                             f"soft record: {soft}")
     return res
 
 
@@ -1119,8 +1216,6 @@ def main() -> int:
         emit({"phase": "kernels", "kernel": "K1", **k1})
         k4 = check_k4(dev, K4_ROWS)
         emit({"phase": "kernels", "kernel": "K4", **k4})
-        k6 = check_k6(dev)
-        emit({"phase": "kernels", "kernel": "K6", **k6})
         # main-path shapes: one wideband chunk of the 1024-carrier capture
         # plus its overlap-save history; CPU-test shapes: C = 8
         k23 = check_pfb(dev, N_CAR, 6_672_000, 1)
@@ -1182,6 +1277,8 @@ def main() -> int:
                                      "resample_rows")) <= 0:
             raise AssertionError(f"a kernel was not launched: {n_launch}")
         emit({"phase": "voice", **voice})
+        k6 = check_k6(dev, voice["k6_rows_per_launch"])
+        emit({"phase": "kernels", "kernel": "K6", **k6})
 
         emit({"phase": "soft_small", **check_soft_small(dev)})
         snr8 = run_snr8(dev, card)
@@ -1208,8 +1305,10 @@ def main() -> int:
         k4_occ = kernels.occupancy("tt_viterbi_segmented", 4, 288)
         k2_occ = kernels.occupancy("tt_pfb_wola", N_CAR)
         k5_occ = kernels.occupancy("tt_demod_fused")
+        k6_occ = kernels.occupancy("tt_viterbi_decode", 3, 112)
         emit({"phase": "occupancy", "K1": k1_occ, "K4": k4_occ,
-              "K2": k2_occ, "K5": k5_occ})
+              "K2": k2_occ, "K5": k5_occ, "K6": k6_occ})
+        k6_main = f"n112_{max(k6['voice_rows'])}"
 
         emit({"kernels": [
             {"name": "viterbi_assembled", "route": "cuda",
@@ -1254,9 +1353,11 @@ def main() -> int:
              "replaces": "tetra_tpu/ops/viterbi_pallas.py:1019",
              "launches": voice["launches"]["viterbi_decode"],
              "max_abs_err": float(k6["max_abs_err"]),
-             "ms": k6["ms_n112"], "plain_ms": k6["plain_ms_n112"],
-             **{k: k6[k] for k in k6 if k.startswith(("ms_", "plain_ms_"))},
-             **k6["bound_n112"], "library_ms": None},
+             "ms": k6[f"ms_{k6_main}"], "plain_ms": k6[f"plain_ms_{k6_main}"],
+             **{k: k6[k] for k in k6
+                if k.startswith(("ms_", "plain_ms_", "device_ms_"))},
+             "empty_launch_ms": k6["empty_launch_ms"],
+             **k6[f"bound_{k6_main}"], "library_ms": None, **k6_occ},
             {"name": "demod_fused", "route": "cuda",
              "source": "tetra_tpu_torch/csrc/demod_fused.cu",
              "replaces": "tetra_tpu/phy/demod_pallas.py:165",

@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import k1_edge_rows, k4_edge_rows
+from chip_smoke import (K6_RAGGED, K6_SHAPES, k1_edge_rows, k4_edge_rows,
+                        k6_edge_rows, k6_rows)
 from tetra_tpu_torch import constants as C, steady_fixture
 from tetra_tpu_torch.lmac import fused
 from tetra_tpu_torch.lmac.pipeline import _block_decoder
@@ -154,23 +155,75 @@ def test_k4_matches_plain(shape):
     assert torch.equal(bits, decode_segmented(x, rm, n_sym, bnd))
 
 
-@pytest.mark.parametrize("n_sym,code", [(112, "tch"), (72, "tch"),
-                                        (77, "cch"), (113, "tch"),
-                                        (292, "cch")])
-def test_k6_matches_plain(n_sym, code):
+# K6's row count at each launch of the voice-1024 pass (chip_smoke.py's
+# voice phase, k6_rows_per_launch): one chunk's full frames or its NDB
+# halves
+VOICE_ROWS = (286, 1018, 1220, 1221, 1369, 2245, 2392, 2536)
+CODES = {"tch": C.CONV_GENERATORS_TCH, "cch": C.CONV_GENERATORS_CCH}
+
+
+@pytest.mark.parametrize("B", K6_RAGGED + VOICE_ROWS)
+@pytest.mark.parametrize("n_sym", list(K6_SHAPES))
+def test_k6_matches_plain(n_sym, B):
     """K6 bit-identical to its plain version on the voice alphabet
-    (+-127 or 0), half the rows erasure-heavy, 8 rows all erasures."""
+    (+-127 or 0, half the rows erasure-heavy) with chip_smoke's edge
+    rows: all-erasure rows (pure ties), rows zeroed before step
+    n_sym // 2, rows of multiples of 0.25; at row counts that fill no
+    block, warp or wave and at the voice pass's own; TCH/S's n112 and
+    n72, odd n77, n113, n71 and TCH/4.8's n292."""
     dev = cuda_device()
-    gens = {"tch": C.CONV_GENERATORS_TCH, "cch": C.CONV_GENERATORS_CCH}[code]
-    g = torch.Generator().manual_seed(n_sym)
-    w = n_sym * len(gens)
-    x = (torch.randint(-1, 2, (3000, w), generator=g) * 127).float()
-    x[:1500][torch.rand((1500, w), generator=g) < 0.9] = 0
-    x[:8] = 0
-    x = x.to(dev)
+    gens = CODES[K6_SHAPES[n_sym]]
+    x = k6_edge_rows(k6_rows(B, n_sym, len(gens), B + n_sym, dev), n_sym,
+                     len(gens))
     n0 = decode_k6.launches
-    assert torch.equal(decode_k6(x, n_sym, gens), decode(x, n_sym, gens))
+    bits = decode_k6(x, n_sym, gens)
     assert decode_k6.launches == n0 + 1
+    assert torch.equal(bits, decode(x, n_sym, gens))
+    assert not bits[::5].any()
+
+
+def test_k6_contiguous_f32_is_one_launch():
+    """A contiguous float32 input, and a column slice of a wider one (read
+    in place with its row stride), is K6's one launch and nothing else:
+    no cast, copy or transpose."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = cuda_device()
+    gens = C.CONV_GENERATORS_TCH
+    x = k6_rows(2000, 116, 3, 1, dev)
+    for soft in (x[:, :336].contiguous(), x):
+        want = decode(soft, 112, gens)
+        decode_k6(soft, 112, gens)            # the code table's one copy
+        torch.cuda.synchronize()
+        n0 = decode_k6.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            bits = decode_k6(soft, 112, gens)
+            torch.cuda.synchronize()
+        assert decode_k6.launches == n0 + 1
+        ops = {e.key for e in prof.key_averages()}
+        assert not ops & {"aten::copy_", "aten::_to_copy", "aten::clone",
+                          "aten::contiguous", "aten::t", "aten::transpose"}
+        kern = [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kern) <= 1 and all("viterbi" in k for k in kern)
+        assert torch.equal(bits, want)
+
+
+def test_k6_reads_row_major_views():
+    """K6 reads float32 column slices in place at any offset and row
+    stride (16-byte aligned or not: N = 4 takes 16-byte loads only where
+    the rows allow), for every code width N = 1..4."""
+    dev = cuda_device()
+    g = torch.Generator().manual_seed(22)
+    for gens in (C.CONV_GENERATORS_CCH, C.CONV_GENERATORS_TCH,
+                 ((1, 4), (2, 3, 4)), ((1, 3, 4),)):
+        n = len(gens)
+        x = (torch.randint(-1, 2, (301, 80 * n + 9), generator=g) * 127
+             ).float().to(dev)
+        for off in (0, 1, 4, 9):
+            view = x[:, off:off + 80 * n]
+            assert torch.equal(decode_k6(view, 80, gens),
+                               decode(view, 80, gens))
 
 
 def test_voice_decode_on_card_matches_cpu():

@@ -380,3 +380,19 @@ def test_snr8_capture_equals_bench(monkeypatch):
     got = prod_fixture.snr8_capture(16, fx)
     assert got.dtype == want.dtype and np.array_equal(got, want)
     assert int(fx["snr8_crc_ok"]) == 74_343
+
+
+def test_snr8_fixture_holds_jax_soft_record():
+    """The snr8 fixture stores the JAX soft path's per-carrier stats
+    (make_torch_fixture.soft_parity) on the 16 carriers the tool names:
+    10 from the port's worst lists and the PFB's edges and centre, each
+    with bursts and CRC-OK blocks of a decoded 8 dB carrier."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import make_torch_fixture as M
+    from tetra_tpu_torch import prod_fixture
+    rec = prod_fixture.soft_record(prod_fixture.load_snr8())
+    assert tuple(rec) == M.SNR8_PARITY_CHANNELS and len(set(rec)) == 16
+    assert {0, 1, 511, 512, 1022, 1023} <= set(rec)
+    st = np.asarray(list(rec.values()))
+    assert st.shape == (16, 3) and (st[:, :2] > 40).all()
+    assert (st[:, 1] <= 80).all() and (st[:, 2] <= 3).all()

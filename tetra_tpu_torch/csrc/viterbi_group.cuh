@@ -1,17 +1,18 @@
 // Lane-group layout shared by the 16-state Viterbi kernels K1
-// (viterbi_assembled.cu) and K4 (viterbi_segmented.cu).
+// (viterbi_assembled.cu), K4 and K6 (viterbi_segmented.cu).
 //
 // A row (one slot's trellis) is decoded by a group of 16 lanes, one per
 // trellis state, so a warp decodes two rows and a block of 256 threads
-// sixteen. At each step lane s (new state s) fetches the metrics of its
-// two predecessors, states s>>1 and (s>>1)|8, from the lanes that hold
-// them with __shfl_sync, computes its two candidates and keeps the
-// larger. The step's 32 decisions (two rows x 16 states) come from one
-// __ballot_sync: row g of the warp owns bits 16g..16g+15. Lane 0 stores
-// the words to shared memory, four steps per 16-byte store, and the
-// whole block's traceback then runs on one warp, one lane per row: a
-// traceback step is a few dependent integer operations, and walking it
-// on every lane of the group would spend 16 issue slots on one row.
+// sixteen (K6 runs blocks of 128 threads, eight rows). At each step lane
+// s (new state s) fetches the metrics of its two predecessors, states
+// s>>1 and (s>>1)|8, from the lanes that hold them with __shfl_sync,
+// computes its two candidates and keeps the larger. The step's 32
+// decisions (two rows x 16 states) come from one __ballot_sync: row g of
+// the warp owns bits 16g..16g+15. Lane 0 stores the words to shared
+// memory, four steps per 16-byte store, and the whole block's traceback
+// then runs on one warp, one lane per row: a traceback step is a few
+// dependent integer operations, and walking it on every lane of the group
+// would spend 16 issue slots on one row.
 //
 // Tie rules of the radix-2 reference (ops/viterbi.py): a decision takes
 // the upper predecessor only when c1 > c0; every argmax (at a restart
@@ -171,10 +172,12 @@ inline int allow_smem(const void* kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// Occupancy of a kernel at `bytes` of dynamic shared memory: out[0]
-// resident blocks per SM, out[1] registers per thread, out[2] shared
-// bytes per block (static + dynamic), out[3] threads per block.
-inline int occupancy(const void* kernel, int bytes, int* out) {
+// Occupancy of a kernel at `bytes` of dynamic shared memory and
+// `threads` per block: out[0] resident blocks per SM, out[1] registers
+// per thread, out[2] shared bytes per block (static + dynamic), out[3]
+// threads per block.
+inline int occupancy(const void* kernel, int bytes, int* out,
+                     int threads = kThreads) {
   int rc = allow_smem(kernel, bytes);
   if (rc) return rc;
   cudaFuncAttributes attr;
@@ -182,12 +185,12 @@ inline int occupancy(const void* kernel, int bytes, int* out) {
   if (rc) return rc;
   int blocks = 0;
   rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                          kThreads, bytes);
+                                                          threads, bytes);
   if (rc) return rc;
   out[0] = blocks;
   out[1] = attr.numRegs;
   out[2] = (int)attr.sharedSizeBytes + bytes;
-  out[3] = kThreads;
+  out[3] = threads;
   return 0;
 }
 

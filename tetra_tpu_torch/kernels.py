@@ -40,7 +40,9 @@ _SIGNATURES = {
     "tt_viterbi_segmented": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _I,
                              _I, _P],
     "tt_viterbi_segmented_occupancy": [_I, _I, _P],
-    "tt_viterbi_decode": [_P, _P, _I, _P, _I, _I, _P],
+    "tt_viterbi_decode": [_P, _I, _P, _I, _P, _I, _I, _P],
+    "tt_viterbi_decode_occupancy": [_I, _I, _P],
+    "tt_empty_launch": [_P],
     "tt_pfb_wola": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "tt_pfb_wola_occupancy": [_I, _P],
     "tt_resample_rows": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _I,
@@ -116,12 +118,19 @@ def lib():
 
 
 def stream_ptr(device: torch.device) -> int:
-    """Raw handle of PyTorch's current CUDA stream on `device`."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """Raw handle of PyTorch's current CUDA stream on `device`, from the
+    getter PyTorch's own generated kernels call: ~0.1 us a call on an
+    H100 host, against ~15 us for torch.cuda.current_stream(device)
+    .cuda_stream, which builds a Stream object (most of a small
+    kernel's wrapper cost)."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def occupancy(name: str, *args: int) -> dict:
-    """Launch shape of a kernel (K1, K2, K4, K5) at the given
+    """Launch shape of a kernel (K1, K2, K4, K5, K6) at the given
     arguments: the exported `<name>_occupancy` fills resident blocks per
     SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers per
     thread and shared bytes per block (cudaFuncGetAttributes plus the

@@ -5,14 +5,18 @@ tetra_tpu.ops.viterbi.decode_auto: soft [..., >= n_sym*N] -> decoded
 bits [..., n_sym], starting from the all-zero state and tracing back from
 the lowest-index best end state. Its path is the TCH/S voice decode
 (ops.acelp.tch_s_decode -> viterbi.decode_tch: rate 1/3, n_sym 112 and
-72). The TPU sends even n_sym to K4's radix-4 body for its matrix unit;
-here K4 and K6 are one radix-2 CUDA body (csrc/viterbi_segmented.cu,
-launcher tt_viterbi_decode with no restart boundaries), so K6 takes
-every n_sym, odd or even.
+72). The TPU sends even n_sym to decode_segmented_pallas with no
+boundaries and keeps its own body for odd n_sym; here every n_sym takes
+K4's lane-group body with no restarts (csrc/viterbi_segmented.cu,
+launcher tt_viterbi_decode: 16 lanes per row, 8 rows per block), which
+reads the rows in place, row-major, with the row stride as an argument.
 
 `decode_k6` is viterbi.decode_auto's one dispatch point: it runs the
 plain version (ops.viterbi.decode, float32 metrics) for CPU tensors and
-launches the kernel for CUDA tensors, raising if it cannot.
+launches the kernel for CUDA tensors, raising if it cannot. A float32
+input whose rows have unit column stride (a contiguous tensor, or a
+column slice of one) is one launch and nothing else; any other dtype or
+layout gets one cast or copy first, as decode_pallas casts.
 """
 from __future__ import annotations
 
@@ -38,25 +42,26 @@ def decode_k6(soft: torch.Tensor, n_sym: int,
     gens = tuple(map(tuple, generators))
     if soft.device.type == "cpu":
         return decode(soft, n_sym, gens)
+    if soft.device.type != "cuda":
+        raise ValueError(f"soft must be a CUDA tensor, got {soft.device}")
     n = len(gens)
-    batch = soft.shape[:-1]
-    flat = soft.reshape(-1, soft.shape[-1])
-    if not (0 < n_sym <= MAX_SYM and 0 < n <= 4) \
-            or flat.shape[1] < n_sym * n:
+    w = n_sym * n
+    x = soft.reshape(-1, soft.shape[-1])
+    if not (0 < n_sym <= MAX_SYM and 0 < n <= 4) or x.shape[1] < w:
         raise ValueError(f"decode_k6: unsupported n_sym {n_sym}, {n} "
-                         f"generators or width {flat.shape[1]}")
-    # time-major [n_sym*N, B]: one thread per row then reads a warp's
-    # 32 rows from 32 consecutive floats
-    soft_tm = flat[:, :n_sym * n].to(torch.float32).t().contiguous()
-    kernels.require_cuda(soft_tm, "soft", torch.float32, 2)
-    B = flat.shape[0]
+                         f"generators or width {x.shape[1]}")
+    if x.dtype != torch.float32 or x.stride(1) != 1 or x.stride(0) < w:
+        x = x[:, :w].to(torch.float32).contiguous()
+    B = x.shape[0]
     bits = torch.empty((B, n_sym), dtype=torch.int8, device=soft.device)
-    rc = kernels.lib().tt_viterbi_decode(
-        soft_tm.data_ptr(), patterns_on(gens, soft.device).data_ptr(), n,
-        bits.data_ptr(), B, n_sym, kernels.stream_ptr(soft.device))
-    kernels.check(rc, "tt_viterbi_decode")
-    decode_k6.launches += 1
-    return bits.reshape(*batch, n_sym)
+    if B:
+        rc = kernels.lib().tt_viterbi_decode(
+            x.data_ptr(), x.stride(0),
+            patterns_on(gens, soft.device).data_ptr(), n, bits.data_ptr(), B,
+            n_sym, kernels.stream_ptr(soft.device))
+        kernels.check(rc, "tt_viterbi_decode")
+        decode_k6.launches += 1
+    return bits.reshape(*soft.shape[:-1], n_sym)
 
 
 decode_k6.launches = 0

@@ -14,10 +14,12 @@ copies of the fixture chain: safe_rolls -> dqpsk.modulate ->
 channelizer.synthesize_wideband_fft -> stream.quantize_iq4c.
 
 `data/snr8_clean.npz` holds the padded clean 16-frame SYNC/SCH_F row of
-tools/bench_mc_e2e.run_snr8 (bit-packed), its n_tail and the JAX
-package's recorded counts for that stage; `snr8_capture` rebuilds the
-stage's noisy capture from it: tile, safe_rolls, modulate, synthesize,
-AWGN at the per-channel SNR from default_rng(99), quantize_iq4c.
+tools/bench_mc_e2e.run_snr8 (bit-packed), its n_tail, the JAX package's
+recorded counts for that stage and its soft path's stats on 16 named
+carriers of the 1024-carrier capture (`soft_record`); `snr8_capture`
+rebuilds the stage's noisy capture from it: tile, safe_rolls, modulate,
+synthesize, AWGN at the per-channel SNR from default_rng(99),
+quantize_iq4c.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ from tetra_tpu_torch.phy.dqpsk import modulate
 __all__ = ["DATA_PATH", "SNR8_PATH", "KEYSTORE", "BITRATE", "load",
            "load_snr8", "safe_rolls", "mixed_bits", "wideband_capture",
            "snr8_bits", "snr8_capture", "keystore_file", "run_receiver",
-           "expected_traffic", "wideband_record", "read_tree"]
+           "expected_traffic", "wideband_record", "soft_record",
+           "read_tree"]
 
 DATA_PATH = pathlib.Path(__file__).parent / "data" / "prod_mixed.npz"
 SNR8_PATH = pathlib.Path(__file__).parent / "data" / "snr8_clean.npz"
@@ -94,6 +97,14 @@ def wideband_record(fx: dict) -> dict:
                              fx["jax_wideband_stats"])}
 
 
+def soft_record(fx: dict) -> dict:
+    """The JAX soft path's per-carrier record on the 1024-carrier snr8
+    capture (tools/make_torch_fixture.py soft_parity): {channel:
+    (bursts, crc_ok, crc_wrong)}."""
+    return {int(c): tuple(int(v) for v in st)
+            for c, st in zip(fx["jax_soft_channels"], fx["jax_soft_stats"])}
+
+
 def read_tree(root) -> dict:
     """Every file under root: {relative path: bytes}, sorted by path."""
     root = pathlib.Path(root)
@@ -103,8 +114,9 @@ def read_tree(root) -> dict:
 
 def load_snr8(path=SNR8_PATH) -> dict:
     """The snr8 fixture: 'row' [L] uint8 (the padded clean row),
-    'n_tail', 'snr_db' and the JAX record 'snr8_crc_ok',
-    'snr8_crc_err', 'clean_crc_ok' (1024 carriers)."""
+    'n_tail', 'snr_db', the JAX record 'snr8_crc_ok', 'snr8_crc_err',
+    'clean_crc_ok' (1024 carriers) and its soft path's per-carrier
+    'jax_soft_channels' [16], 'jax_soft_stats' [16, 3]."""
     with np.load(path) as z:
         d = {k: z[k] for k in z.files}
     d["row"] = np.unpackbits(d["row_packed"])[:int(d["length"])]

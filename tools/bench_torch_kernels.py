@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Times the port's kernels K1, K2, K4, K5 (with K7's stage bisect) and
-the steady-4096 pass of one checkout on the card, for comparing two
+"""Times the port's kernels K1, K2, K4, K5 (with K7's stage bisect), K6
+and the steady-4096 pass of one checkout on the card, for comparing two
 trees in one session.
 
     python3 tools/bench_torch_kernels.py [--repo PATH] [--reps N]
@@ -17,6 +17,13 @@ parent in one call. Prints one JSON line:
   on 20,000 and 262,144 rows of random signs; K4 (`decode_segmented_k4`)
   at n_sym 288 on 21,504 rows of the soft path's alphabet with random
   restarts, and at n_sym 80 on 32 rows;
+- K6 (`decode_k6`) at n_sym 112 and 72 (speech code) at the voice-1024
+  pass's per-launch row counts (VOICE_ROWS) and at 3,072 rows, and at
+  n_sym 292 (control code) on 256 rows, on the voice alphabet; an
+  empty kernel launch where the tree has one (the floor of a one-launch
+  design); and the host microseconds a K6 call takes (`host_us`: the
+  wrapper at n112 x 3,072, the stream-handle getters, the output's
+  allocation);
 - K2 (`pfb_channelize_rows`) at the prod-1024 shape: C 1024 on
   6,672,000 samples of Gaussian noise (one chunk and its overlap-save
   history), and `torch.fft.fft` over the [M, C] complex frames alone;
@@ -105,6 +112,66 @@ def k4_case(dev, rows: int, n_sym: int, bnd: tuple):
     x[torch.rand(x.shape, generator=g) < 0.375] = 0
     rm = torch.randint(0, 2, (rows, len(bnd)), generator=g).to(torch.int8)
     return x.to(dev), rm.to(dev)
+
+
+# K6's row count at each launch of the voice-1024 pass (chip_smoke.py's
+# voice phase, k6_rows_per_launch)
+VOICE_ROWS = (286, 1018, 1220, 1221, 1369, 2245, 2392, 2536)
+
+
+def k6(dev, cs, kernels, reps: int) -> dict:
+    """K6 at the voice pass's shapes (n112 and n72 at VOICE_ROWS and
+    3,072 rows) and TCH/4.8's n292 at 256 rows; the empty launch."""
+    import torch
+    from profile_torch_demod import cuda_ms
+    from tetra_tpu_torch import constants as C
+    from tetra_tpu_torch.ops.viterbi_decode import decode_k6
+    res = {}
+    cases = [(r, n, C.CONV_GENERATORS_TCH) for r in VOICE_ROWS + (3072,)
+             for n in (112, 72)] + [(256, 292, C.CONV_GENERATORS_CCH)]
+    for rows, n_sym, gens in cases:
+        x = cs.k6_rows(rows, n_sym, len(gens), rows + n_sym, dev)
+        run = lambda: decode_k6(x, n_sym, gens)
+        res[f"n{n_sym}_{rows}"] = {
+            "rows": rows, "ms": cuda_ms(run, reps),
+            "device_ms": device_ms(run, reps),
+            **cs.bound(4 * x.numel() + rows * n_sym,
+                       cs.viterbi_ops(rows, n_sym, len(gens)), cs.F32_OPS),
+            "occupancy": occupancy(kernels, "tt_viterbi_decode", len(gens),
+                                   n_sym)}
+    if hasattr(kernels.lib(), "tt_empty_launch"):
+        stream = kernels.stream_ptr(dev)
+        res["empty_launch_ms"] = cuda_ms(
+            lambda: kernels.lib().tt_empty_launch(stream), 100)
+    # host seconds a call: the wrapper at the largest voice shape, and
+    # the stream-handle getters and allocation it may spend them on
+    x = cs.k6_rows(3072, 112, 3, 1, dev)
+    gens = C.CONV_GENERATORS_TCH
+    res["host_us"] = {
+        "decode_k6_n112_3072": host_us(lambda: decode_k6(x, 112, gens)),
+        "kernels_stream_ptr": host_us(lambda: kernels.stream_ptr(dev)),
+        "current_stream": host_us(
+            lambda: torch.cuda.current_stream(dev).cuda_stream),
+        "raw_stream": host_us(
+            lambda: torch._C._cuda_getCurrentRawStream(0)),
+        "empty_int8_3072x112": host_us(
+            lambda: torch.empty((3072, 112), dtype=torch.int8, device=dev))}
+    return res
+
+
+def host_us(fn, n: int = 1000) -> float:
+    """Mean host microseconds of fn() over n calls after a warm-up (the
+    card is synchronised before and after, not between calls)."""
+    import torch
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
 
 
 def occupancy(kernels, name: str, *args):
@@ -212,7 +279,8 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.lib()
     res = {"repo": str(repo), "card": cs.smi(),
-           "build_s": time.perf_counter() - t0, "k1": {}, "k4": {}}
+           "build_s": time.perf_counter() - t0, "k1": {}, "k4": {},
+           "k6": k6(dev, cs, kernels, args.reps)}
     for rows in (20_000, 262_144):
         for name, code, x, tab, rm in k1_cases(dev, rows):
             n = rows

@@ -27,7 +27,10 @@ snr8_clean.npz holds the padded clean 16-frame SYNC/SCH_F row of
 bench_mc_e2e.run_snr8 (bit-packed), its n_tail, the SNR, and the JAX
 package's record of that stage at 1024 carriers (BENCH_r05.json:
 mc_e2e_snr8_crc_ok / _crc_err, and the clean capture's
-mc_e2e_wideband_crc_ok).
+mc_e2e_wideband_crc_ok). `snr8parity` adds, in place, the JAX soft
+path's per-carrier stats on 16 carriers of the 1024-carrier snr8
+capture (soft_parity); run it after `snr8`, which rewrites the file
+without them.
 
 steady_mixed.npz holds the 64 slots of the steady locked-step fixture
 (tests/test_steady.py's _mixed_slots recipe on one grid: slot s has kind
@@ -38,7 +41,7 @@ scrambling code, and each slot's expected kind and type-1 payloads; the
 Runs on the CPU with jax (the rows come from tetra_tpu's TX chain);
 the argument picks one file (default: all):
 
-    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [prod|parity|snr8|steady]
+    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [prod|parity|snr8|snr8parity|steady]
 """
 import contextlib
 import os
@@ -242,13 +245,18 @@ def wideband_parity(channels=PARITY_CHANNELS) -> dict:
                                                         np.uint8)}
 
 
-def main_parity(out=ROOT / "tetra_tpu_torch" / "data" / "prod_mixed.npz"):
-    """Add wideband_parity's arrays to the production fixture in place
-    (every other array is kept as it is)."""
-    rec = wideband_parity()
+def add_arrays(out: pathlib.Path, rec: dict) -> None:
+    """Write rec's arrays into the npz file `out` in place, keeping every
+    other array it holds as it is."""
     with np.load(out) as z:
         keep = {k: z[k] for k in z.files if k not in rec}
     np.savez_compressed(out, **keep, **rec)
+
+
+def main_parity(out=ROOT / "tetra_tpu_torch" / "data" / "prod_mixed.npz"):
+    """Add wideband_parity's arrays to the production fixture in place."""
+    rec = wideband_parity()
+    add_arrays(out, rec)
     print("jax wideband stats:", dict(zip(
         rec["jax_wideband_channels"].tolist(),
         rec["jax_wideband_stats"].tolist())))
@@ -272,6 +280,50 @@ def main_snr8(out=ROOT / "tetra_tpu_torch" / "data" / "snr8_clean.npz"):
                         length=np.int64(len(row)), n_tail=np.int64(n_tail),
                         n_frames=np.int64(N_FRAMES),
                         **{k: np.asarray(v) for k, v in SNR8.items()})
+    print(f"wrote {out} ({out.stat().st_size} bytes)")
+
+
+# snr8-1024 carriers whose per-carrier result the JAX soft path is asked
+# for: the 5 with the fewest CRC-OK blocks and the 5 with the most CRC
+# errors in the port's run on an H100 (chip_smoke.py's snr8 phase prints
+# both lists), then the PFB's edges and centre
+SNR8_PARITY_CHANNELS = (958, 145, 654, 529, 597, 109, 415, 571, 715, 764,
+                        0, 1, 511, 512, 1022, 1023)
+
+
+def soft_parity(channels=SNR8_PARITY_CHANNELS) -> dict:
+    """The JAX package's soft wideband path (demod="soft", PFB front
+    end, native plane) on the 1024-carrier snr8 capture, built by the
+    port's numpy capture code exactly as chip_smoke.py makes it, fed in
+    the 4 process_iq4c cuts of prod_fixture.run_receiver, with only
+    `channels` synchronised and decoded (the PFB computes every bin).
+    Returns the npz arrays jax_soft_channels [n] and jax_soft_stats
+    [n, 3] (bursts, crc_ok, crc_wrong)."""
+    import time
+    from tetra_tpu.rx_multi import MultiCarrierReceiver
+    from tetra_tpu_torch import prod_fixture
+    packed = prod_fixture.snr8_capture(1024)
+    cuts = np.linspace(0, len(packed), 5).astype(int)
+    mc = MultiCarrierReceiver([], fs=25_000.0 * 1024,
+                              pfb_channels=np.asarray(channels, np.int32),
+                              n_chan=1024, control_plane="native",
+                              demod="soft")
+    for k in range(4):
+        t0 = time.perf_counter()
+        mc.process_iq4c(packed[cuts[k]:cuts[k + 1]], final=k == 3)
+        print(f"chunk {k}: {time.perf_counter() - t0:.1f} s", flush=True)
+    stats = np.asarray([(c.stats.bursts, c.stats.crc_ok, c.stats.crc_wrong)
+                        for c in mc.carriers], np.int32)
+    return {"jax_soft_channels": np.asarray(channels, np.int32),
+            "jax_soft_stats": stats}
+
+
+def main_snr8parity(out=ROOT / "tetra_tpu_torch" / "data" / "snr8_clean.npz"):
+    """Add soft_parity's arrays to the snr8 fixture in place."""
+    rec = soft_parity()
+    add_arrays(out, rec)
+    print("jax soft stats:", dict(zip(rec["jax_soft_channels"].tolist(),
+                                      rec["jax_soft_stats"].tolist())))
     print(f"wrote {out} ({out.stat().st_size} bytes)")
 
 
@@ -367,14 +419,17 @@ def main(out=ROOT / "tetra_tpu_torch" / "data" / "prod_mixed.npz"):
 
 
 if __name__ == "__main__":
-    which = sys.argv[1:] or ["prod", "parity", "snr8", "steady"]
-    if not set(which) <= {"prod", "parity", "snr8", "steady"}:
-        sys.exit(f"usage: {sys.argv[0]} [prod|parity|snr8|steady]")
+    modes = ["prod", "parity", "snr8", "snr8parity", "steady"]
+    which = sys.argv[1:] or modes
+    if not set(which) <= set(modes):
+        sys.exit(f"usage: {sys.argv[0]} [{'|'.join(modes)}]")
     if "prod" in which:
         main()
     if "parity" in which:
         main_parity()
     if "snr8" in which:
         main_snr8()
+    if "snr8parity" in which:
+        main_snr8parity()
     if "steady" in which:
         main_steady()
