@@ -27,6 +27,18 @@ Phases (one JSON line each):
               GSMTAP (to a local UDP sink on an ephemeral port) and a
               TL-SDU sink, on the card and on the CPU: every file,
               packet and sink call identical.
+     rx_small  tetra_tpu_torch.rx.TetraReceiver (keystore, dumps,
+              voice) on one carrier of that capture on the card and on
+              the CPU, in 3 chunks and in one call: identical log
+              lines, stats, TMV records and files, equal to the JAX
+              receiver's record in the fixture; K1 and K6 launched.
+     cli      python3 -m tetra_tpu_torch.rx -f bits, and -f iq on a
+              cfile modulated from the same bits, in subprocesses on the
+              card and with --device cpu: identical stdout and dumps.
+     python_small  the 8-carrier capture through
+              control_plane="python" (process_iq4c and process_iq8) on
+              the card and on the CPU: identical per-carrier log lines,
+              stats and TL-SDU sink calls.
   4. prod     the 1024-carrier production capture (25 kHz spacing,
               fs 25.6 MS/s, 4 chunks, 102 TEA1-encrypted carriers)
               once warm and once timed; zero CRC errors, decode counts
@@ -47,6 +59,12 @@ Phases (one JSON line each):
               recorded carriers' files equal to the JAX wideband path's.
               K6's row count at each of its launches is counted from
               the events (one chunk's full frames or NDB halves).
+     python_plane  the same capture through control_plane="python",
+              timed: per-carrier stats equal to the native plane's, the
+              8 recorded carriers' stats and log digests equal to the
+              JAX Python plane's (prod_fixture.python_record), the host
+              split (front end, MultiSync.scan, decode_slots_multi,
+              per-carrier walk) and K1, K2 and K3 launched.
      kernels  K6 (unsegmented Viterbi, 8 rows per block of K4's body)
               bit-identical to its plain version at the voice pass's
               own per-launch row counts (n_sym 112 and 72, speech code,
@@ -90,8 +108,10 @@ Phases (one JSON line each):
               fixture says, K5 and K1 launched by the timed pass.
 Then the kernel summary line (each kernel's launches on its main path,
 max_abs_err, ms, plain_ms, the bound computed from the run's shapes
-and what sets it, and library_ms: null, no single PyTorch call computes
-any of these functions; for K1, K2, K4, K5 and K6 also resident blocks
+and what sets it, and library_ms: null, no single PyTorch call
+computes any of these functions; for K1, K2 and K3 also their launches
+on the Python plane's pass, for K3 its share of the bound; for K1, K2,
+K4, K5 and K6 also resident blocks
 per SM, registers per thread and shared bytes per block at the main
 path's shape, for K2 dft_only_ms and for K6 empty_launch_ms), the
 nvidia-smi line, and last
@@ -692,6 +712,243 @@ def check_voice_small(ks_path: str, dev) -> dict:
     return res
 
 
+def check_rx_small(ks_path: str, dev, fx: dict) -> dict:
+    """tetra_tpu_torch.rx.TetraReceiver (keystore, dumps, voice) on one
+    carrier of the 8-carrier capture (prod_fixture.rx_small_bits), on
+    the card and on the CPU, each fed in 3 chunks with final=False and
+    an empty final call, and in one call: log lines, stats, TMV records
+    and dump/.cod files identical, and equal to the JAX receiver's record
+    in the fixture (prod_fixture.python_record). Launch counts of the
+    card's one-call run."""
+    import tempfile
+    import numpy as np
+    from tetra_tpu_torch import prod_fixture as P
+    from tetra_tpu_torch.rx import TetraReceiver
+    bits = P.rx_small_bits(fx)
+    rec = P.python_record(fx)["rx_small"]
+    runs, n_launch = {}, {}
+    for d in (dev, "cpu"):
+        for mode in ("chunks", "whole"):
+            lines = []
+            with tempfile.TemporaryDirectory() as tmp:
+                r = TetraReceiver(keystore_path=ks_path, dumpdir=tmp,
+                                  decode_voice=True,
+                                  log=P.line_logger(lines), device=d)
+                r.tmv_records = []
+                if mode == "chunks":
+                    for part in np.array_split(bits, 3):
+                        r.process_bits(part, final=False)
+                    r.process_bits(bits[:0], final=True)
+                else:
+                    if d is dev:
+                        reset_launches()
+                    r.process_bits(bits)
+                    if d is dev:
+                        n_launch = launches()
+                files = P.read_tree(tmp)
+            runs[(str(d), mode)] = (lines, (r.stats.bursts, r.stats.crc_ok,
+                                            r.stats.crc_wrong),
+                                    P.digest(r.tmv_records), files)
+    want = (rec["log"], rec["stats"], rec["tmv"], rec["files"])
+    res = {"bits": int(len(bits)), "lines": len(runs[(str(dev), "whole")][0]),
+           "stats": runs[(str(dev), "whole")][1],
+           "files": len(runs[(str(dev), "whole")][3]),
+           "equal_to_cpu": runs[(str(dev), "whole")] == runs[("cpu", "whole")]
+           and runs[(str(dev), "chunks")] == runs[("cpu", "chunks")],
+           "chunks_equal_whole": runs[(str(dev), "chunks")]
+           == runs[(str(dev), "whole")],
+           "equal_to_jax_record": {
+               k: runs[(str(dev), "whole")][i] == want[i]
+               for i, k in enumerate(("log", "stats", "tmv", "files"))},
+           "launches": n_launch}
+    if not (res["equal_to_cpu"] and res["chunks_equal_whole"]
+            and all(res["equal_to_jax_record"].values())):
+        raise AssertionError(f"rx_small: card, CPU and the JAX record "
+                             f"differ: {res}")
+    if n_launch["viterbi_assembled"] <= 0 or n_launch["viterbi_decode"] <= 0:
+        raise AssertionError(f"rx_small: K1 or K6 not launched: {n_launch}")
+    return res
+
+
+def check_cli(ks_path: str, fx: dict) -> dict:
+    """python3 -m tetra_tpu_torch.rx in subprocesses on the rx_small
+    carrier: -f bits on its bits and -f iq on a cfile modulated from
+    them (dqpsk.modulate), each with -k, -d and --voice, once on the
+    card (the default device) and once with --device cpu. Stdout and
+    dump files must be identical; CRC-OK / CRC-WRONG line counts."""
+    import tempfile
+    from tetra_tpu_torch import prod_fixture as P
+    from tetra_tpu_torch.phy import dqpsk
+    root = pathlib.Path(__file__).resolve().parent
+    bits = P.rx_small_bits(fx)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        caps = {"bits": tmp / "cap.bits", "iq": tmp / "cap.cfile"}
+        bits.tofile(caps["bits"])
+        dqpsk.modulate(bits, sps=2).tofile(caps["iq"])
+        for fmt, cap in caps.items():
+            outs = {}
+            for name, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+                d = tmp / f"{fmt}_{name}"
+                t0 = time.perf_counter()
+                out = subprocess.run(
+                    [sys.executable, "-m", "tetra_tpu_torch.rx", *extra,
+                     "-f", fmt, "-k", ks_path, "-d", str(d), "--voice",
+                     str(cap)], cwd=root, capture_output=True, text=True,
+                    timeout=600)
+                if out.returncode:
+                    raise AssertionError(f"cli {fmt} {name}: rc "
+                                         f"{out.returncode}: "
+                                         f"{out.stderr[-3000:]}")
+                outs[name] = (out.stdout, P.read_tree(d),
+                              time.perf_counter() - t0)
+            lines = outs["card"][0].splitlines()
+            res[fmt] = {
+                "crc_ok_lines": sum(ln.startswith("CRC COMP") and
+                                    ln.endswith(" OK") for ln in lines),
+                "crc_wrong_lines": sum(ln.startswith("CRC COMP") and
+                                       ln.endswith(" WRONG") for ln in lines),
+                "summary": lines[-1], "files": len(outs["card"][1]),
+                "stdout_equal": outs["card"][0] == outs["cpu"][0],
+                "files_equal": outs["card"][1] == outs["cpu"][1],
+                "card_s": outs["card"][2], "cpu_s": outs["cpu"][2]}
+    if not all(r["stdout_equal"] and r["files_equal"] and r["crc_ok_lines"]
+               for r in res.values()):
+        raise AssertionError(f"cli: card and CPU differ: {res}")
+    return res
+
+
+def python_run(packed, n_car: int, ks_path: str, dev, method: str,
+               n_chunks: int, log_carriers=None, sink: bool = True):
+    """One pass of MultiCarrierReceiver(control_plane="python") over
+    `packed` in n_chunks calls of `method`: (receiver, per-carrier log
+    lines (for log_carriers; all by default), TL-SDU sink calls, wall
+    seconds). The per-stage timers (utils.trace "pyplane.*") are reset
+    first."""
+    import numpy as np
+    import torch
+    from tetra_tpu_torch import prod_fixture as P
+    from tetra_tpu_torch.rx_multi import MultiCarrierReceiver
+    from tetra_tpu_torch.utils import trace
+    dev = torch.device(dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    keep = set(range(n_car) if log_carriers is None else log_carriers)
+    logs = {c: [] for c in keep}
+    calls = []
+    k = 2 if method == "process_iq8" else 1
+    cuts = np.linspace(0, len(packed) // k, n_chunks + 1).astype(int) * k
+    trace.clear_timings()
+    sync()
+    t0 = time.perf_counter()
+    mrx = MultiCarrierReceiver(
+        [], fs=25_000.0 * n_car, pfb_channels=np.arange(n_car), n_chan=n_car,
+        keystore_path=ks_path, control_plane="python", device=dev,
+        log=[P.line_logger(logs[c]) if c in keep else (lambda *a: None)
+             for c in range(n_car)],
+        tl_sdu_sink=(lambda c, pd, pt, b: calls.append(
+            (c, pd, pt, b.tobytes()))) if sink else None)
+    for i in range(n_chunks):
+        getattr(mrx, method)(packed[cuts[i]:cuts[i + 1]],
+                             final=i == n_chunks - 1)
+    sync()
+    return mrx, logs, calls, time.perf_counter() - t0
+
+
+def iq8_capture(bits):
+    """Per-carrier bits [C, L] -> interleaved int8 wideband IQ (6-sigma
+    backoff), carrier c on PFB channel c of C."""
+    import numpy as np
+    from tetra_tpu_torch.io.stream import quantize_iq
+    from tetra_tpu_torch.phy.channelizer import synthesize_wideband_fft
+    from tetra_tpu_torch.phy.dqpsk import modulate
+    wide = synthesize_wideband_fft(modulate(bits, sps=2),
+                                   np.arange(bits.shape[0]), bits.shape[0])
+    sig = float(np.sqrt(np.mean(np.abs(wide) ** 2) / 2))
+    qr, qi = quantize_iq(wide.real / (6 * sig), wide.imag / (6 * sig))
+    return np.stack([qr, qi], 1).reshape(-1)
+
+
+def check_python_small(ks_path: str, dev, fx: dict) -> dict:
+    """The 8-carrier capture through control_plane="python" on the card
+    and on the CPU, in process_iq4c and process_iq8 (2 chunks each):
+    per-carrier log lines, stats and TL-SDU sink calls identical."""
+    from tetra_tpu_torch import prod_fixture as P
+    bits, _ = P.mixed_bits(8, 0.25, fx)
+    res = {}
+    for method, packed in (("process_iq4c", P.wideband_capture(bits)),
+                           ("process_iq8", iq8_capture(bits))):
+        outs = []
+        for d in (dev, "cpu"):
+            mrx, logs, calls, _ = python_run(packed, 8, ks_path, d, method, 2)
+            st = [(c.stats.bursts, c.stats.crc_ok, c.stats.crc_wrong)
+                  for c in mrx.carriers]
+            outs.append((logs, st, calls))
+        res[method] = {"crc_ok": sum(s[1] for s in outs[0][1]),
+                       "crc_wrong": sum(s[2] for s in outs[0][1]),
+                       "log_lines": sum(len(v) for v in outs[0][0].values()),
+                       "sink_calls": len(outs[0][2]),
+                       "logs_equal": outs[0][0] == outs[1][0],
+                       "stats_equal": outs[0][1] == outs[1][1],
+                       "sink_calls_equal": outs[0][2] == outs[1][2]}
+    if not all(r["logs_equal"] and r["stats_equal"] and r["sink_calls_equal"]
+               and r["crc_ok"] > 0 and r["sink_calls"] > 0
+               for r in res.values()):
+        raise AssertionError(f"python_small: card and CPU differ: {res}")
+    return res
+
+
+def run_python_plane(ks_path: str, packed, fx: dict, native, dev,
+                     card: str) -> dict:
+    """prod-1024 (4 chunks, keystore, process_iq4c) through
+    control_plane="python", one timed pass with the launch counts set to
+    0 just before it: per-carrier (bursts, crc_ok, crc_wrong) equal to
+    the native plane's pass of this run (`native`), the 8 recorded
+    carriers' stats and log digests equal to the JAX Python plane's
+    record (prod_fixture.python_record), and the host split of the pass
+    (utils.trace's pyplane.* timers: device front end, MultiSync.scan,
+    decode_slots_multi, the per-carrier walk)."""
+    import numpy as np
+    from tetra_tpu_torch import prod_fixture as P
+    from tetra_tpu_torch.utils import trace
+    rec = P.python_record(fx)["channels"]
+    reset_launches()
+    mrx, logs, _, wall = python_run(packed, N_CAR, ks_path, dev,
+                                    "process_iq4c", N_CHUNKS,
+                                    log_carriers=rec, sink=False)
+    n_launch = launches()
+    split = {k.split(".", 1)[1] + "_s": v["total_s"]
+             for k, v in trace.timings().items() if k.startswith("pyplane.")}
+    mine = np.asarray([(c.stats.bursts, c.stats.crc_ok, c.stats.crc_wrong)
+                       for c in mrx.carriers])
+    nat = np.asarray([(c.stats.bursts, c.stats.crc_ok, c.stats.crc_wrong)
+                      for c in native.carriers])
+    differ = np.flatnonzero((mine != nat).any(1)).tolist()
+    jax_py = {c: {"port": mine[c].tolist(), "jax_python": list(st),
+                  "log_digest_equal": P.digest(logs[c]) == dg,
+                  "log_lines": len(logs[c])}
+              for c, (st, dg) in rec.items()}
+    rt = N_CAR * int(fx["length"]) / P.BITRATE
+    res = {"carriers": N_CAR, "chunks": N_CHUNKS, "wall_s": wall,
+           "realtime_carriers": rt / wall, "card": card,
+           "host_split": {**split, "other_s": wall - sum(split.values())},
+           "crc_ok": int(mine[:, 1].sum()), "crc_err": int(mine[:, 2].sum()),
+           "carriers_differing_from_native": differ,
+           "per_carrier_jax_python": jax_py, "launches": n_launch}
+    if differ:
+        raise AssertionError(f"python_plane: per-carrier stats differ from "
+                             f"the native plane's: {res}")
+    if any(v["port"] != v["jax_python"] or not v["log_digest_equal"]
+           for v in jax_py.values()):
+        raise AssertionError(f"python_plane: differs from the JAX Python "
+                             f"plane's record: {jax_py}")
+    if min(n_launch[k] for k in ("viterbi_assembled", "pfb_wola",
+                                 "resample_rows")) <= 0:
+        raise AssertionError(f"python_plane: a kernel was not launched: "
+                             f"{n_launch}")
+    return res
+
+
 def voice_from_dump(block: bytes) -> bytes:
     """One 690-int16 dump block -> its .cod frame without a keystream,
     decoded on the CPU (the plain chain). A block whose second half is
@@ -1228,9 +1485,13 @@ def main() -> int:
             emit({"phase": "small", **check_small(ks_path, dev)})
             emit({"phase": "voice_small",
                   **check_voice_small(ks_path, dev)})
+            fx = prod_fixture.load()
+            emit({"phase": "rx_small", **check_rx_small(ks_path, dev, fx)})
+            emit({"phase": "cli", **check_cli(ks_path, fx)})
+            emit({"phase": "python_small",
+                  **check_python_small(ks_path, dev, fx)})
 
             t0 = time.perf_counter()
-            fx = prod_fixture.load()
             bits, n_enc = prod_fixture.mixed_bits(N_CAR, 0.1, fx)
             packed = prod_fixture.wideband_capture(bits)
             T_bits = bits.shape[1]
@@ -1245,6 +1506,7 @@ def main() -> int:
                                                   dev, N_CHUNKS)
             n_launch = launches()
             voice = run_voice(ks_path, packed, n_enc, fx, dev, card, wall)
+            pyplane = run_python_plane(ks_path, packed, fx, mrx, dev, card)
         got = counts(mrx)
         ref = {k: [int(v) for v in fx[f"ref_{k}"]] for k in got}
         in_window = {k: ref[k][0] <= got[k] <= ref[k][1] for k in got}
@@ -1277,6 +1539,8 @@ def main() -> int:
                                      "resample_rows")) <= 0:
             raise AssertionError(f"a kernel was not launched: {n_launch}")
         emit({"phase": "voice", **voice})
+        emit({"phase": "python_plane", **pyplane})
+        p_launch = pyplane["launches"]
         k6 = check_k6(dev, voice["k6_rows_per_launch"])
         emit({"phase": "kernels", "kernel": "K6", **k6})
 
@@ -1315,6 +1579,7 @@ def main() -> int:
              "source": "tetra_tpu_torch/csrc/viterbi_assembled.cu",
              "replaces": "tetra_tpu/ops/viterbi_pallas.py:631",
              "launches": n_launch["viterbi_assembled"],
+             "python_plane_launches": p_launch["viterbi_assembled"],
              "max_abs_err": float(max(k1["max_abs_err"],
                                       k1s["max_abs_err"])),
              "ms": k1["ms_n288"], "plain_ms": k1["plain_ms_n288"],
@@ -1329,6 +1594,7 @@ def main() -> int:
              "source": "tetra_tpu_torch/csrc/pfb_wola.cu",
              "replaces": "tetra_tpu/phy/pfb_pallas.py:212",
              "launches": n_launch["pfb_wola"],
+             "python_plane_launches": p_launch["pfb_wola"],
              "max_abs_err": k23["k2_max_abs_err"],
              "ms": k23["k2_ms"], "plain_ms": k23["k2_plain_ms"],
              "dft_only_ms": k23["k2_dft_only_ms"],
@@ -1337,8 +1603,10 @@ def main() -> int:
              "source": "tetra_tpu_torch/csrc/resample_rows.cu",
              "replaces": "tetra_tpu/phy/pfb_pallas.py:337",
              "launches": n_launch["resample_rows"],
+             "python_plane_launches": p_launch["resample_rows"],
              "max_abs_err": k23["k3_max_abs_err"],
              "ms": k23["k3_ms"], "plain_ms": k23["k3_plain_ms"],
+             "share_of_bound": k23["k3_bound"]["bound_ms"] / k23["k3_ms"],
              **k23["k3_bound"], "library_ms": None},
             {"name": "viterbi_segmented", "route": "cuda",
              "source": "tetra_tpu_torch/csrc/viterbi_segmented.cu",

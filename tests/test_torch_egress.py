@@ -174,11 +174,11 @@ def test_tun_writes(monkeypatch):
     monkeypatch.setattr(TunDevice, "write",
                         lambda self, pkt: written.append((self, pkt)))
     got = MultiCarrierReceiver([], fs=75e3, pfb_channels=np.arange(3),
-                               device=CPU)
+                               control_plane="native", device=CPU)
     for rx in (ref, got):
         rx.process_bits(batch[:, :cut], final=False)
         rx.process_bits(batch[:, cut:], final=True)
-    per = {c: [p for dev, p in written if dev is got.carriers[c].tun]
+    per = {c: [p for dev, p in written if dev is got.carriers[c]._tun]
            for c in range(3)}
     assert per == want
     assert [per[c] for c in range(3)] == [[ip] for ip in ips]

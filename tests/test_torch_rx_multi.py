@@ -81,7 +81,7 @@ def test_bits_entry_matches_jax():
     ref = JaxReceiver(np.zeros(B, np.float32), fs=25e3 * B,
                       control_plane="native")
     got = MultiCarrierReceiver([], fs=25e3 * B, pfb_channels=np.arange(B),
-                               device=CPU)
+                               control_plane="native", device=CPU)
     for k in range(len(cuts) - 1):
         last = k == len(cuts) - 2
         for rx in (ref, got):
@@ -107,6 +107,7 @@ sdus = []
 with prod_fixture.keystore_file() as ks:
     mrx = rm.MultiCarrierReceiver(
         [], fs=2e5, pfb_channels=[2, 7], n_chan=8, device="cpu",
+        control_plane="native",
         keystore_path=ks, dumpdir=sys.argv[1], decode_voice=True,
         gsmtap_host="127.0.0.1", tl_sdu_sink=lambda *a: sdus.append(a))
     stats = mrx.process_iq4c(packed)
@@ -129,7 +130,6 @@ print("ok")
 
 @pytest.mark.parametrize("kwargs", [
     dict(pfb_channels=None),
-    dict(control_plane="python"),
     dict(mesh=object()),
 ])
 def test_unported_options_raise(kwargs):

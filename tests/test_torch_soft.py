@@ -276,7 +276,8 @@ def test_soft_receiver_chunked_matches_jax_and_whole():
     ref, got = _receivers(wide, "soft", cuts=[7 * blk, 13 * blk + 41])
     _same_receivers(ref, got, 2)
     whole = MultiCarrierReceiver([], fs=N_CHAN * 25e3, pfb_channels=CHANS,
-                                 n_chan=N_CHAN, demod="soft", device=CPU)
+                                 n_chan=N_CHAN, control_plane="native",
+                                 demod="soft", device=CPU)
     whole.process_iq(wide, final=True)
     ew, ec = _events(whole), _events(got)
     assert all(np.array_equal(ew[k], ec[k]) for k in ew)
@@ -295,7 +296,8 @@ def test_hard_bits_through_soft_pipeline():
 
     def port(demod, tol=None):
         m = MultiCarrierReceiver([], fs=1e5, pfb_channels=np.arange(4),
-                                 demod=demod, device=CPU)
+                                 control_plane="native", demod=demod,
+                                 device=CPU)
         if tol is not None:
             m._fast.tol = tol
         m.process_bits(bits, final=True)
@@ -317,7 +319,8 @@ def test_bad_demod_raises():
     from tetra_tpu_torch.rx_multi import MultiCarrierReceiver
     with pytest.raises(ValueError):
         MultiCarrierReceiver([], fs=2e5, pfb_channels=np.arange(8),
-                             n_chan=8, demod="slotwise", device=CPU)
+                             n_chan=8, control_plane="native",
+                             demod="slotwise", device=CPU)
 
 
 # ---- jax-free run and the snr8 fixture -----------------------------------
@@ -332,7 +335,7 @@ from tetra_tpu_torch import prod_fixture
 from tetra_tpu_torch.rx_multi import MultiCarrierReceiver
 packed = prod_fixture.snr8_capture(8)
 mrx = MultiCarrierReceiver([], fs=2e5, pfb_channels=np.arange(8), n_chan=8,
-                           demod="soft", device="cpu")
+                           control_plane="native", demod="soft", device="cpu")
 stats = mrx.process_iq4c(packed)
 assert sum(s.crc_ok for s in stats) > 8 * 60, [s.crc_ok for s in stats]
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)

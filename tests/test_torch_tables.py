@@ -196,7 +196,8 @@ def test_fixture_bits_path_stats():
     sub = bits[:12]
     with prod_fixture.keystore_file() as ks:
         rx = MultiCarrierReceiver([], fs=25e3 * 12, pfb_channels=np.arange(12),
-                                  keystore_path=ks, device=torch.device("cpu"))
+                                  keystore_path=ks, control_plane="native",
+                                  device=torch.device("cpu"))
         cuts = np.linspace(0, sub.shape[1], 5).astype(int)
         for k in range(4):
             rx.process_bits(sub[:, cuts[k]:cuts[k + 1]], final=k == 3)
@@ -228,7 +229,8 @@ def test_fixture_chain_numpy_copies():
 
 _COPIES = ["constants", "tdma", "umac/native_exec", "crypto/crypto",
            "crypto/tea", "crypto/taa1", "crypto/hurdle", "crypto/native",
-           "io/gsmtap", "io/tun"]
+           "io/gsmtap", "io/tun", "umac/mac_pdu", "llc/llc_pdu", "llc/llc",
+           "mle/mle", "umac/upper_mac"]
 
 
 def _code(path: pathlib.Path) -> str:

@@ -2,16 +2,40 @@
 
 The production format is companded 4+4-bit IQ (`iq4c`): one byte per
 complex sample, each nibble an index into the 16 Lloyd-Max levels of a
-unit-variance Gaussian. `quantize_iq4c` is the host-side encoder used
-to build fixtures.
+unit-variance Gaussian. The other two are interleaved int8 IQ (`iq8`,
+two bytes per complex sample, `quantize_iq` per plane) and uniform
+4+4-bit IQ (`iq4`, two's-complement nibbles in [-7, 7]). The quantize_*
+functions are the host-side encoders; the dequantize_* functions run on
+the tensor's device. The double-buffered ingest loop of the JAX package
+(`stream_map`) is not ported.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["LLOYD_MAX_16", "quantize_iq4c", "dequantize_iq4c",
-           "dequantize_iq4"]
+__all__ = ["LLOYD_MAX_16", "quantize_iq", "dequantize_iq", "quantize_iq4",
+           "quantize_iq4c", "dequantize_iq4c", "dequantize_iq4"]
+
+def quantize_iq(re, im, scale: float = 127.0):
+    """Host-side float IQ -> int8 planar pair (SDR-capture-like)."""
+    q = lambda x: np.clip(np.round(np.asarray(x) * scale), -127, 127).astype(np.int8)
+    return q(re), q(im)
+
+
+def dequantize_iq(re_i8: torch.Tensor, im_i8: torch.Tensor,
+                  scale: float = 1.0 / 127.0):
+    """int8 planar IQ -> float32 planes."""
+    return (re_i8.to(torch.float32) * scale, im_i8.to(torch.float32) * scale)
+
+
+def quantize_iq4(re, im, scale: float = 7.0) -> np.ndarray:
+    """Host-side float IQ -> ONE uint8 per complex sample (I in the low
+    nibble, Q in the high nibble, two's-complement nibbles in [-7, 7])."""
+    q = lambda x: (np.clip(np.round(np.asarray(x) * scale), -7, 7)
+                   .astype(np.int8) & 0xF).astype(np.uint8)
+    return (q(re) | (q(im) << 4)).astype(np.uint8)
+
 
 # Optimal (Lloyd-Max) 16-level quantizer for a unit-variance Gaussian
 # (Max, "Quantizing for minimum distortion", 1960).

@@ -3,8 +3,9 @@ tetra_tpu.ops.crc).
 
 Reference behaviour: src/lower_mac/crc_simple.c:46-106 (init 0xFFFF,
 poly 0x1021, MSB first over unpacked bits; check constant 0x1D0F) and
-src/tetra_llc_pdu.c:105-126 (FCS-32). The bit-serial host versions
-(`crc16_bits_np`, `fcs32_np`) back crypto.native's fallbacks.
+src/tetra_llc_pdu.c:105-126 (FCS-32). The host versions
+(`crc16_bits_np`, `fcs32_np`) back crypto.native's fallbacks and the
+receiver's CRC log lines.
 
 The CRC of a fixed-length bit vector is affine over GF(2):
 crc(x) = x @ M xor C. The host builds (M, C) once per length; the batch
@@ -25,13 +26,13 @@ __all__ = ["crc16_matrix", "crc16_check", "crc16_tables", "crc16_bits_np",
 
 
 def crc16_bits_np(bits) -> int:
-    """Host bit-serial CRC16 of unpacked bits."""
-    crc = CRC16_INIT
-    for b in np.asarray(bits).reshape(-1):
-        crc ^= (int(b) & 1) << 15
-        crc = (((crc << 1) ^ CRC16_POLY) if crc & 0x8000
-               else (crc << 1)) & 0xFFFF
-    return crc
+    """Host CRC16 of unpacked bits (bit 0 of each element): the register
+    of the bit-serial loop, as the XOR of crc16_matrix's rows of the set
+    bits (tests/test_torch_tables.py holds it to tetra_tpu's loop)."""
+    b = (np.asarray(bits).reshape(-1) & 1) != 0
+    M, Cc = crc16_matrix(len(b))
+    reg = np.bitwise_xor.reduce(M[b], axis=0) ^ Cc
+    return int(reg.astype(np.int64) @ (1 << np.arange(15, -1, -1)))
 
 
 def fcs32_np(bits) -> int:

@@ -16,9 +16,18 @@ import functools
 import numpy as np
 import torch
 
-from tetra_tpu_torch.constants import SCRAMB_TAPS
+from tetra_tpu_torch.constants import SCRAMB_INIT, SCRAMB_TAPS
 
-__all__ = ["keystream_matrix", "keystream_np", "keystream", "scramb_bits"]
+__all__ = ["keystream_matrix", "keystream_np", "keystream", "scramb_bits",
+           "scramb_get_init"]
+
+
+def scramb_get_init(mcc: int, mnc: int, colour: int) -> int:
+    """Cell scrambling code (reference src/lower_mac/tetra_scramb.c:87-99)."""
+    mcc &= 0x3FF
+    mnc &= 0x3FFF
+    colour &= 0x3F
+    return ((colour | (mnc << 6) | (mcc << 20)) << 2) | SCRAMB_INIT
 
 
 @functools.lru_cache(maxsize=8)

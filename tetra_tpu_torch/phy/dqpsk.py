@@ -1,5 +1,5 @@
-"""pi/4-DQPSK hard- and soft-decision demod (port of tetra_tpu.phy.dqpsk
-without the angle path) plus the host modulator used to build fixtures.
+"""pi/4-DQPSK demod (port of tetra_tpu.phy.dqpsk) plus the host
+modulator used to build fixtures.
 
 Reference behaviour: src/demod/cqpsk.py (RRC matched filter, differential
 phasor) and src/float_to_bits.c (sign thresholds). Feed-forward design:
@@ -8,7 +8,11 @@ differential phasor over one symbol, one timing phase per carrier
 picked by the |sin 2θ| metric over the whole chunk, and sign decisions
 (or, soft, the phasor components scaled to int8 reliabilities). The
 slotwise demods re-pick the timing phase and correct the residual
-carrier phase per slot, for degraded signals on the steady chain.
+carrier phase per slot, for degraded signals on the steady chain. The
+angle path of the single-carrier CLI (`demodulate`: one timing phase
+per stream picked by |sin 2θ|, coarse CFO removed, float phase symbols
+in pi/4 units) feeds `float_to_bits`; `phase_to_bits` is the reference
+slicer with its optional pseudo-AFC, on the host.
 
 Plain PyTorch. demodulate_hard_ri at os=1 is the demod that kernel K5
 (phy.demod_fused) fuses on the card; its plain version there is built
@@ -23,7 +27,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tetra_tpu_torch.device import resolve_device
+
 __all__ = ["rrc_taps", "_band_matrix", "modulate", "bits_to_phase",
+           "demodulate_ri", "demodulate", "float_to_bits", "phase_to_bits",
            "_fir_real", "_stream_score", "_timing_metric", "_select",
            "_stream_phasors", "_hard_bits",
            "demodulate_hard_ri", "demodulate_soft_ri",
@@ -105,6 +112,111 @@ def _fir_real(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
     xp = F.pad(x.to(torch.float32)[:, None, :], (pad, ntaps - 1 - pad))
     y = F.conv1d(xp, w)
     return y if np.ndim(taps) == 2 else y[:, 0]
+
+
+def demodulate_ri(re, im, sps: int = 2, est_cfo: bool = True):
+    """Planar baseband re, im [..., T] float32 -> float phase symbols
+    [..., T//sps] in pi/4 units (±1/±3 on a clean signal): RRC matched
+    filter, differential phasor over one symbol, its angle, one timing
+    phase per stream picked by the mean |sin 2θ|, and (est_cfo) the
+    coarse CFO, the mean deviation from the nearest odd multiple of
+    pi/4, subtracted."""
+    re = torch.as_tensor(re)
+    im = torch.as_tensor(im)
+    batch = re.shape[:-1]
+    T = re.shape[-1]
+    taps = rrc_taps(sps)
+    fr = _fir_real(re.reshape(-1, T), taps)
+    fi = _fir_real(im.reshape(-1, T), taps)
+
+    # differential phasor z[n] * conj(z[n - sps]) on float planes
+    # (zero-padded at the front so output keeps T//sps symbols)
+    def lag(x):
+        return F.pad(x, (sps, 0))[..., :-sps]
+
+    lr, li = lag(fr), lag(fi)
+    dr = fr * lr + fi * li
+    di = fi * lr - fr * li
+    theta = torch.atan2(di, dr)
+
+    # timing: per stream, the sample phase maximising |sin(2θ)|
+    n = (theta.shape[-1] // sps) * sps
+    th = theta[..., :n].reshape(theta.shape[0], n // sps, sps)
+    score = torch.mean(torch.abs(torch.sin(2.0 * th)), dim=-2)   # [N, sps]
+    best = torch.argmax(score, dim=-1)
+    sym_theta = th.gather(2, best[:, None, None].expand(
+        th.shape[0], th.shape[1], 1))[..., 0]
+
+    q4 = math.pi / 4.0
+    if est_cfo:
+        # coarse CFO: mean deviation from the nearest odd multiple of pi/4
+        quant = torch.round((sym_theta / q4 - 1.0) / 2.0) * 2.0 + 1.0
+        err = sym_theta - quant * q4
+        sym_theta = sym_theta - torch.mean(err, dim=-1, keepdim=True)
+
+    return (sym_theta / q4).reshape(*batch, n // sps)
+
+
+def demodulate(iq, sps: int = 2, est_cfo: bool = True, device=None):
+    """Complex baseband [..., T] (numpy, or a complex tensor) -> float
+    phase symbols [..., T//sps] (a float32 tensor on `device`, the card
+    unless the caller asks for the CPU), the reference chain's float
+    stream (phase steps in pi/4 units), which feeds float_to_bits."""
+    dev = resolve_device(device)
+    if not isinstance(iq, torch.Tensor):
+        iq = torch.as_tensor(np.asarray(iq, np.complex64))
+    iq = iq.to(dev)
+    return demodulate_ri(iq.real.to(torch.float32).contiguous(),
+                         iq.imag.to(torch.float32).contiguous(),
+                         sps=sps, est_cfo=est_cfo)
+
+
+def float_to_bits(symbols) -> torch.Tensor:
+    """Float phase symbols [..., n] -> hard ubits [..., 2n] int8.
+
+    Thresholds and dibit map of reference src/float_to_bits.c:33-72:
+    >2 -> +3 -> (0,1); >0 -> +1 -> (0,0); <-2 -> -3 -> (1,1); else -1
+    -> (1,0)."""
+    s = torch.as_tensor(symbols)
+    b0 = (s <= 0).to(torch.int8)
+    b1 = ((s > 2) | (s < -2)).to(torch.int8)
+    return torch.stack([b0, b1], dim=-1).reshape(*s.shape[:-1],
+                                                 s.shape[-1] * 2)
+
+
+def phase_to_bits(symbols, afc: bool = False, filter_val: float = 1e-4,
+                  filter_goal: float = 0.0) -> np.ndarray:
+    """Host slicer with the optional one-pole pseudo-AFC
+    (reference float_to_bits.c:142-149). Sequential by nature; used for
+    file-based parity runs.
+
+    Arithmetic reproduces the C program's mixed float/double evaluation
+    exactly (filter stored as float32; `filter * (1.0 - filter_val)`
+    promotes to double, `(fl - goal) * filter_val` stays float32), as
+    the JAX package's copy does.
+    """
+    out = np.zeros(len(symbols) * 2, dtype=np.uint8)
+    fv = np.float32(filter_val)
+    fg = np.float32(filter_goal)
+    one_minus = np.float64(1.0) - np.float64(fv)
+    filt = np.float32(0.0)
+    for i, fl in enumerate(np.asarray(symbols, dtype=np.float32)):
+        if afc:
+            if -5.0 < fl < 5.0:
+                t2 = np.float32(np.float32(fl - fg) * fv)
+                filt = np.float32(np.float64(filt) * one_minus
+                                  + np.float64(t2))
+            fl = np.float32(fl - filt)
+        if fl > 2:
+            d = (0, 1)
+        elif fl > 0:
+            d = (0, 0)
+        elif fl < -2:
+            d = (1, 1)
+        else:
+            d = (1, 0)
+        out[2 * i], out[2 * i + 1] = d
+    return out
 
 
 def _stream_score(re, im, sps: int, os: int):

@@ -1,4 +1,4 @@
-"""Vectorised burst synchroniser (port of tetra_tpu.phy.sync_vec.sync_scan).
+"""Vectorised burst synchroniser (port of tetra_tpu.phy.sync_vec).
 
 Reference behaviour: src/phy/tetra_burst_sync.c stepped 64 bits at a
 time (tetra-rx.c:86). Per-carrier state is a handful of int32 tensors;
@@ -15,16 +15,25 @@ module notes):
 This is a Python loop over steps, so on a GPU it is bound by kernel
 launches (tens of small ops per step); a one-thread-per-carrier kernel
 is queued in ROADMAP.md.
+
+MultiSync is the host wrapper of the Python control plane: chunked
+streaming over [B, L] bit arrays with an absolute-position carry, whose
+per-carrier slot and event lists equal phy.sync.align_stream's.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 
 from tetra_tpu_torch import constants as C
+from tetra_tpu_torch.device import resolve_device
 from tetra_tpu_torch.phy.burst import LOCKED_COLS, train_seq_match
-from tetra_tpu_torch.phy.sync import FEED_BITS, RING_BITS, _SEQS, _SEQ_LEN
+from tetra_tpu_torch.phy.sync import (FEED_BITS, RING_BITS, AlignedSlot,
+                                      SyncEvent, _PRIO, _SEQS, _SEQ_LEN)
 
-__all__ = ["sync_scan", "OUT_KEYS"]
+__all__ = ["sync_scan", "OUT_KEYS", "VecSyncCarry", "MultiSync"]
 
 _BIG = 1 << 27
 _PAT0 = tuple(int(_SEQS[c][0]) for c in LOCKED_COLS)
@@ -185,3 +194,114 @@ def sync_scan(bits, state0, buf_start0, nbuf0, nfs0, slot0, fed0: int,
            for k, v in outs.items()}
     fed = int(fed0) + steps * feed
     return (state, buf_start, nbuf, nfs, slot_index, fed), out
+
+
+@dataclass
+class VecSyncCarry:
+    """Per-carrier synchroniser state, absolute stream positions
+    (host-side int64 so indefinitely long streams never wrap)."""
+    state: np.ndarray        # [B] 0=UNLOCKED 1=KNOW_FSTART 2=LOCKED
+    buf_start: np.ndarray    # [B]
+    bits_in_buf: np.ndarray  # [B]
+    nfs: np.ndarray          # [B] next_frame_start
+    slot_index: np.ndarray   # [B]
+    fed: int = 0             # common scan position (same stream length/carrier)
+
+    @classmethod
+    def zeros(cls, n: int) -> "VecSyncCarry":
+        z = lambda: np.zeros(n, dtype=np.int64)
+        return cls(z(), z(), z(), z(), z(), 0)
+
+
+class MultiSync:
+    """Host wrapper: chunked streaming over [B, L] bit arrays with an
+    absolute-position carry, emitting per-carrier AlignedSlot/SyncEvent
+    lists identical to phy.sync.align_stream per carrier. The scan runs
+    on `device` (the card unless the caller asks for the CPU)."""
+
+    def __init__(self, n_carriers: int, feed: int = FEED_BITS, device=None):
+        self.carry = VecSyncCarry.zeros(n_carriers)
+        self.n = n_carriers
+        self.feed = feed
+        self.device = resolve_device(device)
+
+    def scan(self, bits, base_offset: int = 0):
+        """bits [B, L] covering absolute [base_offset, base_offset+L).
+        Only whole feed quanta are consumed (callers keep the tail).
+        Returns (slots_per_carrier, events_per_carrier); offsets are
+        ABSOLUTE stream positions (unlike align_stream's chunk-relative
+        ones), since multi-carrier callers slice a shared ring."""
+        cy = self.carry
+        bits = np.asarray(bits, dtype=np.uint8)
+        B, L = bits.shape
+        assert B == self.n
+        end_abs = base_offset + L
+        steps = int((end_abs - cy.fed) // self.feed)
+        slots = [[] for _ in range(B)]
+        events = [[] for _ in range(B)]
+        if steps <= 0:
+            return slots, events
+        if cy.buf_start.min() < base_offset or cy.fed < base_offset:
+            raise ValueError("carry refers to bits before this chunk")
+
+        dev = self.device
+        rel = lambda x: (x - base_offset).astype(np.int32)
+        i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+        (st, bs, nb, nfs, si, _fed), out = sync_scan(
+            torch.as_tensor(bits.astype(np.int8), device=dev),
+            i32(cy.state), i32(rel(cy.buf_start)), i32(cy.bits_in_buf),
+            i32(np.maximum(rel(cy.nfs), -1)), i32(cy.slot_index * 0),
+            int(cy.fed - base_offset), steps, self.feed)
+        # three device-to-host transfers, not one per array
+        i8_keys = ("burst", "emit", "found", "bad", "lost", "col")
+        i32_keys = ("slot", "found_rel", "found_q", "bad_rel")
+        pk8 = torch.stack([out[k].to(torch.int8) for k in i8_keys]) \
+            .cpu().numpy()
+        pk32 = torch.stack([out[k] for k in i32_keys]).cpu().numpy()
+        cyv = torch.stack([st, bs, nb, nfs, si]).cpu().numpy()
+        out = {k: pk8[i] for i, k in enumerate(i8_keys)}
+        out.update({k: pk32[i] for i, k in enumerate(i32_keys)})
+        st, bs, nb, nfs, si = cyv
+
+        # rebuild ordered per-carrier event/slot lists (host, numpy masks)
+        seq0 = 0  # per-carrier seq restarts per chunk; ordering is per step
+        for b in range(B):
+            sidx = int(cy.slot_index[b])
+            seq = seq0
+            for t in np.flatnonzero(out["burst"][:, b] | out["found"][:, b]):
+                t = int(t)
+                if out["found"][t, b]:
+                    seq += 1
+                    events[b].append(SyncEvent(
+                        "found_sync",
+                        int(out["found_q"][t, b]) + base_offset,
+                        int(out["found_rel"][t, b]), seq))
+                    continue
+                sidx += 1
+                seq += 1
+                burst_seq = seq
+                slot_abs = int(out["slot"][t, b]) + base_offset
+                events[b].append(SyncEvent("burst", slot_abs, 0, burst_seq))
+                if out["emit"][t, b]:
+                    slots[b].append(AlignedSlot(
+                        slot_abs, _PRIO[int(out["col"][t, b])],
+                        sidx, burst_seq))
+                elif out["bad"][t, b]:
+                    seq += 1
+                    events[b].append(SyncEvent("bad_offset", slot_abs,
+                                               int(out["bad_rel"][t, b]), seq))
+                elif out["lost"][t, b]:
+                    seq += 1
+                    events[b].append(SyncEvent("lost", slot_abs, 0, seq))
+
+        # persist carry with absolute positions
+        cy.state = np.asarray(st, np.int64)
+        cy.buf_start = np.asarray(bs, np.int64) + base_offset
+        cy.bits_in_buf = np.asarray(nb, np.int64)
+        cy.nfs = np.asarray(nfs, np.int64) + base_offset
+        cy.slot_index = cy.slot_index + np.asarray(si, np.int64)
+        cy.fed += steps * self.feed
+        return slots, events
+
+    def min_buf_start(self) -> int:
+        return int(self.carry.buf_start.min())

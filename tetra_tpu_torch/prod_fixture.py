@@ -8,7 +8,11 @@ recorded decode counts for the 1024-carrier production stage, and the
 traffic dump and voice files its bits path writes for one plain and one
 encrypted carrier (`expected_traffic`), and its wideband path's stats
 and files on 8 named carriers of the 1024-carrier capture
-(`wideband_record`). From them
+(`wideband_record`), and its Python control plane's record
+(`python_record`): the single-carrier TetraReceiver's log lines, TMV
+records and files on one carrier of the 8-carrier capture, and the
+per-carrier stats and log digests of the 1024-carrier capture's 8
+named carriers. From them
 this module rebuilds the bench's companded wideband capture with numpy
 copies of the fixture chain: safe_rolls -> dqpsk.modulate ->
 channelizer.synthesize_wideband_fft -> stream.quantize_iq4c.
@@ -40,6 +44,7 @@ __all__ = ["DATA_PATH", "SNR8_PATH", "KEYSTORE", "BITRATE", "load",
            "load_snr8", "safe_rolls", "mixed_bits", "wideband_capture",
            "snr8_bits", "snr8_capture", "keystore_file", "run_receiver",
            "expected_traffic", "wideband_record", "soft_record",
+           "python_record", "rx_small_bits", "line_logger", "digest",
            "read_tree"]
 
 DATA_PATH = pathlib.Path(__file__).parent / "data" / "prod_mixed.npz"
@@ -95,6 +100,57 @@ def wideband_record(fx: dict) -> dict:
     return {int(c): (tuple(int(v) for v in st), files[int(c)])
             for c, st in zip(fx["jax_wideband_channels"],
                              fx["jax_wideband_stats"])}
+
+
+# the single-carrier receiver's capture: carrier 7 (TEA1-encrypted) of
+# mixed_bits(8, 0.25), the 8-carrier capture of the CPU tests
+RX_SMALL = (8, 0.25, 7)
+
+
+def rx_small_bits(fx: dict | None = None) -> np.ndarray:
+    """The single-carrier receiver's capture [L] uint8 (RX_SMALL)."""
+    n_car, enc_frac, c = RX_SMALL
+    return mixed_bits(n_car, enc_frac, fx)[0][c]
+
+
+def line_logger(lines: list):
+    """A receiver `log` callable appending each line to `lines` as the
+    tests join print's arguments."""
+    return lambda *a: lines.append(" ".join(str(x) for x in a))
+
+
+def digest(items) -> str:
+    """sha256 hex of log lines (str) or TMV records (tuples), one per
+    line."""
+    import hashlib
+    text = "\n".join(x if isinstance(x, str) else ",".join(map(str, x))
+                     for x in items)
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def python_record(fx: dict) -> dict:
+    """The JAX Python control plane's record (tools/make_torch_fixture.py
+    pyplane): {"rx_small": {"log": [lines], "tmv": digest, "stats":
+    (bursts, crc_ok, crc_wrong), "files": {name: bytes}} of tetra_tpu's
+    TetraReceiver on rx_small_bits with the keystore, dumps and voice;
+    "channels": {channel: ((bursts, crc_ok, crc_wrong), log digest)} of
+    its MultiCarrierReceiver(control_plane="python") on 8 carriers of the
+    1024-carrier capture}."""
+    files = {}
+    ends = np.cumsum(fx["jax_rx_small_file_sizes"])
+    blob = fx["jax_rx_small_file_bytes"].tobytes()
+    for name, end, size in zip(fx["jax_rx_small_file_names"], ends,
+                               fx["jax_rx_small_file_sizes"]):
+        files[str(name)] = blob[end - size:end]
+    log = fx["jax_rx_small_log"].tobytes().decode().split("\0")
+    return {"rx_small": {"log": log, "tmv": str(fx["jax_rx_small_tmv"]),
+                         "stats": tuple(int(v) for v in
+                                        fx["jax_rx_small_stats"]),
+                         "files": files},
+            "channels": {int(c): (tuple(int(v) for v in st), str(dg))
+                         for c, st, dg in zip(fx["jax_python_channels"],
+                                              fx["jax_python_stats"],
+                                              fx["jax_python_log_digests"])}}
 
 
 def soft_record(fx: dict) -> dict:
@@ -218,8 +274,8 @@ def run_receiver(packed: np.ndarray, n_car: int, ks_path: str | None,
     t0 = time.perf_counter()
     mrx = MultiCarrierReceiver(
         [], fs=25_000.0 * n_car, pfb_channels=np.arange(n_car),
-        n_chan=n_car, keystore_path=ks_path, demod=demod, device=dev,
-        **egress)
+        n_chan=n_car, keystore_path=ks_path, control_plane="native",
+        demod=demod, device=dev, **egress)
     if gsmtap_addr is not None:
         mrx.gsmtap.addr = gsmtap_addr
     for k in range(n_chunks):

@@ -1,27 +1,46 @@
-"""Multi-carrier receiver, production path (port of the PFB + native
-control-plane branch of tetra_tpu.rx_multi).
+"""Multi-carrier receiver: wideband IQ -> N decoded carrier streams
+(port of the PFB branch of tetra_tpu.rx_multi).
 
-Wideband companded IQ (`process_iq4c`) or complex samples (`process_iq`)
-in, per-carrier decode stats and native control-plane events out. Each
-chunk runs as one fused chunk program on the device (fastpath.submit_iq)
-and one C++ walk of the upper MAC / LLC / MLE / crypto
-(umac.native_exec). Chunks are pipelined: up to `pipeline_depth`
-dispatched chunks wait before the oldest is fetched and walked; a
-final=True call drains the queue.
+Wideband samples in one of four ingest formats (`process_iq4c`, the
+production companded 4+4-bit IQ; `process_iq8`, interleaved int8;
+`process_iq4`, uniform 4+4-bit; `process_iq`, complex samples) or
+per-carrier hard bits (`process_bits`) in, per-carrier decode stats out.
+The front end (dequantize, PFB channelizer K2, resampler K3, hard demod
+at os=4) runs on the device, with overlap-save streaming across chunks.
 
-Egress, as the JAX package's native plane has it: GSMTAP packets of
-every CRC-OK block (`gsmtap_host`), every TL-SDU to `tl_sdu_sink(carrier,
-pdisc, pdut, sdu_bits)`, defrag-reassembled SNDCP IP packets to tun0,
-and with `dumpdir` the traffic dumps of each carrier under
-`dumpdir/carrier<i>` (with `decode_voice`, the TCH/S voice frames too,
-decoded on the card by kernel K6).
+Two control planes, as in the JAX package:
 
-demod="soft" is the degraded-signal mode: int8 soft demod, a sync scan
-that accepts 2 training-sequence bit errors, and the soft Viterbi
-(kernel K4) over the same kind-compacted FEC.
+* "python" (the default): all carriers synchronise in one device scan
+  (phy.sync_vec.MultiSync) and FEC-decode in one device program
+  (rx.decode_slots_multi: K1 at 80 and at 288 steps on a card); then
+  each carrier's TetraReceiver walks its upper MAC / LLC / MLE / crypto
+  per slot on the host, with the reference's log lines (`log`: one
+  callable for all carriers, or one per carrier), per-carrier
+  decryption, GSMTAP per carrier and the L3 parse. The time of each
+  stage accumulates in utils.trace.timings() under "pyplane.*".
+* "native": each chunk runs as one fused chunk program on the device
+  (fastpath.submit_iq) and one C++ walk of the upper MAC / LLC / MLE /
+  crypto (umac.native_exec), with structured events instead of log
+  lines. Chunks are pipelined: up to `pipeline_depth` dispatched chunks
+  wait before the oldest is fetched and walked; a final=True call
+  drains the queue.
+
+`carriers` holds one TetraReceiver per carrier on both planes (the
+native plane writes its stats, TDMA time and cell identity there).
+
+Egress on both planes: every TL-SDU to `tl_sdu_sink(carrier, pdisc,
+pdut, sdu_bits)` (on the Python plane chained after the MLE parse),
+defrag-reassembled SNDCP IP packets to tun0, GSMTAP packets of every
+CRC-OK block (`gsmtap_host`), and with `dumpdir` the traffic dumps of
+each carrier under `dumpdir/carrier<i>` (with `decode_voice`, the TCH/S
+voice frames too, decoded on the card by kernel K6).
+
+demod="soft" is the degraded-signal mode of the native plane: int8 soft
+demod, a sync scan that accepts 2 training-sequence bit errors, and the
+soft Viterbi (kernel K4) over the same kind-compacted FEC.
 
 Not ported (NotImplementedError): the mixer-bank channelizer (no
-pfb_channels), the Python control plane and mesh sharding.
+pfb_channels) and mesh sharding.
 """
 from __future__ import annotations
 
@@ -31,12 +50,14 @@ import numpy as np
 import torch
 
 from tetra_tpu_torch.device import resolve_device
-from tetra_tpu_torch.fastpath import FastChunkPipeline
-from tetra_tpu_torch.rx import CarrierState, RxStats, append_files, \
-    dump_blocks, voice_frames
+from tetra_tpu_torch.fastpath import FastChunkPipeline, _iq_frontend
+from tetra_tpu_torch.phy.sync_vec import MultiSync
+from tetra_tpu_torch.rx import RxStats, TetraReceiver, append_files, \
+    decode_slots_multi, dump_blocks, voice_frames
 from tetra_tpu_torch.tdma import TdmaTime
 from tetra_tpu_torch.umac.native_exec import EV, NativeControlPlane
-from tetra_tpu_torch.utils.bits import pack_bits
+from tetra_tpu_torch.utils import trace
+from tetra_tpu_torch.utils.bits import bits_to_uint, pack_bits
 
 __all__ = ["MultiCarrierReceiver", "pfb_demod_bits_len"]
 
@@ -57,9 +78,9 @@ def pfb_demod_bits_len(n_samples: int, n_chan: int, fs: float,
 class MultiCarrierReceiver:
     def __init__(self, offsets_hz, fs: float, sps: int = 2,
                  keystore_path: str | None = None,
-                 dumpdir: str | None = None,
+                 dumpdir: str | None = None, log=None,
                  pfb_channels=None, n_chan: int | None = None,
-                 control_plane: str = "native",
+                 control_plane: str = "python",
                  gsmtap_host: str | None = None,
                  decode_voice: bool = False,
                  tl_sdu_sink=None, mesh=None, demod: str = "hard",
@@ -67,11 +88,14 @@ class MultiCarrierReceiver:
         if pfb_channels is None:
             raise NotImplementedError("the mixer-bank channelizer is not "
                                       "ported; pass pfb_channels")
-        if control_plane != "native":
-            raise NotImplementedError("only the native control plane is "
-                                      "ported")
+        if control_plane not in ("python", "native"):
+            raise ValueError(f"control_plane must be 'python' or 'native', "
+                             f"got {control_plane!r}")
         if demod not in ("hard", "soft"):
             raise ValueError(f"demod must be 'hard' or 'soft', got {demod!r}")
+        if demod != "hard" and control_plane != "native":
+            raise ValueError("soft demod rides the fastpath (native "
+                             "control plane)")
         if mesh is not None:
             raise NotImplementedError("mesh sharding is not ported")
         self.device = resolve_device(device)
@@ -81,29 +105,66 @@ class MultiCarrierReceiver:
         self.n_chan = (n_chan if n_chan is not None
                        else int(round(fs / 25_000.0)))
         n_carriers = len(self.pfb_channels)
-        self.carriers = [CarrierState(
-            dumpdir=f"{dumpdir}/carrier{i}" if dumpdir else None)
-            for i in range(n_carriers)]
-        for c in self.carriers:
-            if c.dumpdir:
-                os.makedirs(c.dumpdir, exist_ok=True)
+        self.carriers = []
+        for i in range(n_carriers):
+            # `log` may be one callable shared by all carriers or a
+            # per-carrier sequence of callables
+            if log is None:
+                carrier_log = lambda *a, **k: None
+            elif isinstance(log, (list, tuple)):
+                carrier_log = log[i]
+            else:
+                carrier_log = log
+            self.carriers.append(TetraReceiver(
+                keystore_path=keystore_path,
+                dumpdir=f"{dumpdir}/carrier{i}" if dumpdir else None,
+                # the native plane exports GSMTAP from ONE shared sink fed
+                # by the executor's events, not per-carrier sockets
+                gsmtap_host=(gsmtap_host if control_plane == "python"
+                             else None),
+                decode_voice=decode_voice, log=carrier_log,
+                device=self.device))
+        self.control_plane = control_plane
         self.decode_voice = decode_voice
+        # generic TL-SDU egress: fn(carrier, pdisc, pdut, sdu_ubits) for
+        # every TL-SDU, from either plane
         self.tl_sdu_sink = tl_sdu_sink
-        self.native_cp = NativeControlPlane(n_carriers)
-        if keystore_path:
-            from tetra_tpu_torch.crypto.crypto import load_keystore
-            self.native_cp.set_keys(load_keystore(keystore_path))
+        if tl_sdu_sink is not None and control_plane == "python":
+            for ci, rx in enumerate(self.carriers):
+                # the sink is additive: TetraReceiver wired tl_sdu_cb to
+                # mle.rx_tl_sdu (MLE/CMCE/SNDCP parse + the reference's
+                # log lines); chain it so the L3 parse stays
+                def cb(bits, n, _c=ci, _prev=rx.llc.tl_sdu_cb):
+                    if _prev is not None:
+                        _prev(bits, n)
+                    b = np.asarray(bits)[:n]
+                    pdisc = int(bits_to_uint(b[:3]))
+                    w = {1: 4, 2: 5, 4: 4, 5: 3}.get(pdisc)
+                    pdut = (-1 if w is None
+                            else int(bits_to_uint(b[3:3 + w])))
+                    self.tl_sdu_sink(_c, pdisc, pdut, b)
+                rx.llc.tl_sdu_cb = cb
+        self.native_cp = None
         self.gsmtap = None
-        if gsmtap_host:
-            from tetra_tpu_torch.io.gsmtap import GsmtapSink
-            self.gsmtap = GsmtapSink(gsmtap_host)
-            self.native_cp.set_gsmtap(True)
-        self.native_events = []
-        self._fast = FastChunkPipeline(n_carriers, self.device,
-                                       soft=demod == "soft")
-        self._pending = []
-        # chunks kept in flight while streaming (final=False)
-        self.pipeline_depth = 2
+        self.native_events = []   # accumulated event dicts (native plane)
+        if control_plane == "native":
+            self.native_cp = NativeControlPlane(n_carriers)
+            if keystore_path:
+                from tetra_tpu_torch.crypto.crypto import load_keystore
+                self.native_cp.set_keys(load_keystore(keystore_path))
+            if gsmtap_host:
+                from tetra_tpu_torch.io.gsmtap import GsmtapSink
+                self.gsmtap = GsmtapSink(gsmtap_host)
+                self.native_cp.set_gsmtap(True)
+            self._fast = FastChunkPipeline(n_carriers, self.device,
+                                           soft=demod == "soft")
+            self._pending = []
+            # chunks kept in flight while streaming (final=False)
+            self.pipeline_depth = 2
+        else:
+            self.sync = MultiSync(n_carriers, device=self.device)
+            self._buf = np.zeros((n_carriers, 0), dtype=np.uint8)
+            self._buf_base = 0
         chans = torch.as_tensor(self.pfb_channels, dtype=torch.int64)
         self._chan_idx = (None if np.array_equal(
             self.pfb_channels, np.arange(self.n_chan))
@@ -118,11 +179,25 @@ class MultiCarrierReceiver:
         iq = np.ascontiguousarray(np.asarray(wideband_iq, np.complex64))
         return self._wideband_stream(iq.view(np.float32), 2, "f32i", final)
 
+    def process_iq8(self, iq8, final: bool = True) -> list[RxStats]:
+        """One chunk of interleaved int8 wideband IQ ([I0, Q0, I1, Q1,
+        ...], two bytes per complex sample) through the chain."""
+        return self._wideband_stream(np.asarray(iq8, np.int8), 2, "iq8",
+                                     final)
+
     def process_iq4c(self, packed_u8, final: bool = True) -> list[RxStats]:
         """One chunk of companded 4+4-bit wideband IQ (one byte per
         complex sample, io.stream.quantize_iq4c) through the chain."""
         return self._wideband_stream(np.asarray(packed_u8, np.uint8), 1,
                                      "iq4c", final)
+
+    def process_iq4(self, packed_u8, final: bool = True) -> list[RxStats]:
+        """One chunk of uniform 4+4-bit wideband IQ (one byte per complex
+        sample, io.stream.quantize_iq4) through the chain. Its 15 linear
+        levels suit up to ~128 active channels; a fully loaded span
+        should use process_iq4c (same byte rate) or process_iq8."""
+        return self._wideband_stream(np.asarray(packed_u8, np.uint8), 1,
+                                     "iq4", final)
 
     def _wideband_stream(self, raw, k: int, fmt: str, final: bool):
         """Overlap-save streaming for the PFB front end: each
@@ -130,7 +205,12 @@ class MultiCarrierReceiver:
         consumed in BLOCK-aligned quanta (BLOCK = 25*n_chan samples =
         exactly 36 demod bits per carrier), so the per-call output's
         valid region equals the continuous stream's bits. raw: 1-D,
-        k elements per complex sample."""
+        k elements per complex sample.
+
+        The native plane dispatches the whole chunk (front end, sync,
+        FEC, packing) as one device program; the Python plane runs the
+        front end on the device and walks the kept bits through
+        process_bits."""
         n = self.n_chan
         BLOCK = 25 * n
         W = 2 * BLOCK
@@ -164,9 +244,17 @@ class MultiCarrierReceiver:
         self._wb_hist = hist_src[-W * k:]
         if final:
             self._reset_wb_stream()
-        h = self._fast.submit_iq(feed, fmt, keep, self._chan_idx, n,
-                                 self.fs, sps=self.sps)
-        return self._native_drain(h, final)
+        if self.control_plane == "native":
+            h = self._fast.submit_iq(feed, fmt, keep, self._chan_idx, n,
+                                     self.fs, sps=self.sps)
+            return self._native_drain(h, final)
+        with trace.timer("pyplane.frontend"):
+            raw_d = torch.as_tensor(np.asarray(feed)).to(self.device)
+            bits = _iq_frontend(raw_d, self._chan_idx, fmt, n, self.fs,
+                                self.sps)
+            bits = bits[:, bits.shape[1] - keep:].cpu().numpy() \
+                .astype(np.uint8)
+        return self.process_bits(bits, final=final)
 
     def _reset_wb_stream(self):
         self._wb_hist = None
@@ -174,10 +262,56 @@ class MultiCarrierReceiver:
         self._wb_g = None
 
     def process_bits(self, bits, final: bool = True) -> list[RxStats]:
-        """Per-carrier hard bits [C, T] -> per-carrier decode stats."""
+        """Per-carrier hard bits [C, T] -> per-carrier decode stats.
+
+        Native plane: final=False keeps chunks in flight (their fetch
+        and walk happen during later calls); stats are complete once a
+        final=True call drains the pipeline. Python plane: the walk runs
+        in this call; only whole 64-bit feed quanta are consumed and
+        the rest waits for the next call, whatever `final` says (as in
+        the JAX package)."""
+        if not isinstance(bits, torch.Tensor):
+            bits = np.asarray(bits)
         if bits.ndim != 2 or bits.shape[0] != len(self.carriers):
             raise ValueError("bits must be [n_carriers, T]")
-        return self._native_drain(self._fast.submit(bits), final)
+        if self.control_plane == "native":
+            return self._native_drain(self._fast.submit(bits), final)
+        if isinstance(bits, torch.Tensor):
+            bits = bits.cpu().numpy()
+        return self._process_bits_python(np.asarray(bits, np.uint8))
+
+    def _process_bits_python(self, bits) -> list[RxStats]:
+        """Python control plane: all carriers synchronise in one device
+        scan and FEC-decode in one device program; the byte-scale
+        upper-MAC walk runs per carrier on the host."""
+        self._buf = np.concatenate([self._buf, bits & 1], axis=1)
+        with trace.timer("pyplane.sync"):
+            slots, events = self.sync.scan(self._buf,
+                                           base_offset=self._buf_base)
+        # rebase the absolute offsets to the buffer for slicing/decoding
+        base = self._buf_base
+        for sl, ev in zip(slots, events):
+            for s in sl:
+                s.offset -= base
+            for e in ev:
+                e.offset -= base
+        with trace.timer("pyplane.decode"):
+            decoded = decode_slots_multi(
+                list(self._buf), slots,
+                [rx.scramb_init for rx in self.carriers], device=self.device)
+        with trace.timer("pyplane.walk"):
+            for c, rx in enumerate(self.carriers):
+                rx._ev_ptr = 0
+                for s, d in zip(slots[c], decoded[c]):
+                    rx._flush_events(events[c], s.seq)
+                    rx._walk_slot(d)
+                rx._flush_events(events[c], 1 << 62)
+
+        keep = max(self._buf_base, self.sync.min_buf_start())
+        if keep > self._buf_base:
+            self._buf = self._buf[:, keep - self._buf_base:]
+            self._buf_base = keep
+        return [rx.stats for rx in self.carriers]
 
     def _native_drain(self, h, final: bool) -> list[RxStats]:
         """Queue one dispatched chunk and drain the pipeline to its
@@ -233,7 +367,7 @@ class MultiCarrierReceiver:
             sdu = arena[ref >> 1: (ref >> 1) + nbits]
             if (ref & 1) and nbits > 19:
                 payload = sdu[19:]      # strip the SNDCP header bits
-                self.carriers[car].ip_out(
+                self.carriers[car]._ip_out(
                     pack_bits(payload[: (len(payload) // 8) * 8]))
             if self.tl_sdu_sink is not None:
                 self.tl_sdu_sink(car, int(evd["a"][i]), int(evd["b"][i]),
@@ -299,20 +433,20 @@ class MultiCarrierReceiver:
         scr = d["scramb"]
         for i, c in enumerate(np.asarray(d["side_carrier"], np.int64)):
             c = int(c)
-            cs = self.carriers[c]
+            rx = self.carriers[c]
             adv = adv_all[c] + int(d["tail"][i])
             if adv:
-                cs.stats.bursts += int(adv)
-                cs.stats.slots += int(adv)
-            cs.stats.crc_ok += int(ok_c[c])
-            cs.stats.crc_wrong += int(wr_c[c])
-            cs.time.tn, cs.time.fn, cs.time.mn = (int(states[c, 0]),
+                rx.stats.bursts += int(adv)
+                rx.stats.slots += int(adv)
+            rx.stats.crc_ok += int(ok_c[c])
+            rx.stats.crc_wrong += int(wr_c[c])
+            rx.time.tn, rx.time.fn, rx.time.mn = (int(states[c, 0]),
                                                   int(states[c, 1]),
                                                   int(states[c, 2]))
-            cs.colour_code, cs.mcc, cs.mnc = (int(states[c, 3]),
+            rx.colour_code, rx.mcc, rx.mnc = (int(states[c, 3]),
                                               int(states[c, 4]),
                                               int(states[c, 5]))
-            cs.scramb_init = int(scr[i])
+            rx.scramb_init = int(scr[i])
 
         if self.gsmtap is not None:
             self._export_gsmtap(evd, d)

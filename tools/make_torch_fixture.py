@@ -21,7 +21,11 @@ stream, so every plain carrier writes the plain row's files and every
 encrypted carrier the encrypted row's. `parity` adds, in place, the JAX
 wideband path's per-carrier stats and dump files on 8 carriers of the
 1024-carrier capture (wideband_parity); run it after `prod`, which
-rewrites the file without them.
+rewrites the file without them. `pyplane` adds, in place, the JAX
+Python control plane's record (python_plane_record): tetra_tpu's
+TetraReceiver on one carrier of the 8-carrier capture, and its
+MultiCarrierReceiver(control_plane="python") on the 8 parity carriers of
+the 1024-carrier capture; run it after `prod` too.
 
 snr8_clean.npz holds the padded clean 16-frame SYNC/SCH_F row of
 bench_mc_e2e.run_snr8 (bit-packed), its n_tail, the SNR, and the JAX
@@ -41,7 +45,7 @@ scrambling code, and each slot's expected kind and type-1 payloads; the
 Runs on the CPU with jax (the rows come from tetra_tpu's TX chain);
 the argument picks one file (default: all):
 
-    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [prod|parity|snr8|snr8parity|steady]
+    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [prod|parity|pyplane|snr8|snr8parity|steady]
 """
 import contextlib
 import os
@@ -81,13 +85,21 @@ def jax_short_row_dumps():
     dumps it: the bits it has as -127/127, the positions it lacks 0
     (erasure), the SSI line, and its voice frames from the JAX package's
     own _decode_voice_slot (which decodes the missing positions as
-    erasures). Rows of 432 bits take the unchanged JAX code."""
+    erasures), with the usage, timeslot and SSI defaults of the Python
+    plane's call. Rows of 432 bits take the unchanged JAX code."""
     from tetra_tpu.rx import TetraReceiver
     orig = TetraReceiver._dump_traffic
 
     def dump(self, type4, usage=None, tsn=None, ssi=None, voice_ks=None):
         if len(type4) >= 432 or not self.dumpdir:
             return orig(self, type4, usage, tsn, ssi, voice_ks)
+        # the Python plane's defaults (tetra_tpu.rx._dump_traffic)
+        if usage is None:
+            usage = self.umac.cur_burst_is_traffic
+        if tsn is None:
+            tsn = self.time.tn - 1
+        if ssi is None:
+            ssi = self.umac.ssi
         block = np.zeros(690, dtype=np.int16)
         for i in range(6):
             block[115 * i] = 0x6B21 + i
@@ -263,6 +275,82 @@ def main_parity(out=ROOT / "tetra_tpu_torch" / "data" / "prod_mixed.npz"):
     print(f"wrote {out} ({out.stat().st_size} bytes)")
 
 
+def python_plane_record(channels=PARITY_CHANNELS) -> dict:
+    """The JAX package's Python control plane:
+
+    - tetra_tpu.rx.TetraReceiver (keystore, dumps and voice, under
+      jax_short_row_dumps) on prod_fixture.rx_small_bits in one call:
+      its log lines (jax_rx_small_log, NUL-joined bytes: a line may hold
+      a newline), the digest
+      of its TMV records (jax_rx_small_tmv), its stats and every file it
+      writes (jax_rx_small_file_{names,sizes,bytes});
+    - MultiCarrierReceiver(control_plane="python") on the 1024-carrier
+      production capture as wideband_parity runs it (PFB front end,
+      keystore, the 4 process_iq4c cuts of prod_fixture.run_receiver),
+      with only `channels` decoded, each with its own log: per carrier
+      (bursts, crc_ok, crc_wrong) and the digest of its log lines
+      (jax_python_channels, jax_python_stats, jax_python_log_digests).
+    """
+    import tempfile
+    import time
+    from tetra_tpu.rx import TetraReceiver
+    from tetra_tpu.rx_multi import MultiCarrierReceiver
+    from tetra_tpu_torch import prod_fixture as P
+    fx = P.load()
+    rec = {}
+    with P.keystore_file() as ks, tempfile.TemporaryDirectory() as tmp, \
+            jax_short_row_dumps():
+        lines = []
+        rx = TetraReceiver(keystore_path=ks, dumpdir=tmp, decode_voice=True,
+                           log=P.line_logger(lines))
+        rx.tmv_records = []
+        st = rx.process_bits(P.rx_small_bits(fx))
+        files = P.read_tree(tmp)
+        rec["jax_rx_small_log"] = np.frombuffer("\0".join(lines).encode(),
+                                                np.uint8)
+        rec["jax_rx_small_tmv"] = np.asarray(P.digest(rx.tmv_records))
+        rec["jax_rx_small_stats"] = np.asarray(
+            [st.bursts, st.crc_ok, st.crc_wrong], np.int32)
+        rec["jax_rx_small_file_names"] = np.asarray(list(files))
+        rec["jax_rx_small_file_sizes"] = np.asarray(
+            [len(v) for v in files.values()], np.int64)
+        rec["jax_rx_small_file_bytes"] = np.frombuffer(
+            b"".join(files.values()), np.uint8)
+        print(f"rx_small: {len(lines)} lines, {st}, {len(files)} files",
+              flush=True)
+
+        bits, _ = P.mixed_bits(1024, 0.1, fx)
+        packed = P.wideband_capture(bits)
+        cuts = np.linspace(0, len(packed), 5).astype(int)
+        logs = [[] for _ in channels]
+        mc = MultiCarrierReceiver([], fs=25_000.0 * 1024,
+                                  pfb_channels=np.asarray(channels, np.int32),
+                                  n_chan=1024, control_plane="python",
+                                  keystore_path=ks,
+                                  log=[P.line_logger(lg) for lg in logs])
+        for k in range(4):
+            t0 = time.perf_counter()
+            mc.process_iq4c(packed[cuts[k]:cuts[k + 1]], final=k == 3)
+            print(f"chunk {k}: {time.perf_counter() - t0:.1f} s", flush=True)
+    rec["jax_python_channels"] = np.asarray(channels, np.int32)
+    rec["jax_python_stats"] = np.asarray(
+        [(c.stats.bursts, c.stats.crc_ok, c.stats.crc_wrong)
+         for c in mc.carriers], np.int32)
+    rec["jax_python_log_digests"] = np.asarray([P.digest(lg) for lg in logs])
+    return rec
+
+
+def main_pyplane(out=ROOT / "tetra_tpu_torch" / "data" / "prod_mixed.npz"):
+    """Add python_plane_record's arrays to the production fixture in
+    place."""
+    rec = python_plane_record()
+    add_arrays(out, rec)
+    print("jax python-plane stats:", dict(zip(
+        rec["jax_python_channels"].tolist(),
+        rec["jax_python_stats"].tolist())))
+    print(f"wrote {out} ({out.stat().st_size} bytes)")
+
+
 def snr8_row(seed: int = 0):
     """The padded clean row and n_tail, as bench_mc_e2e.run_snr8 builds
     them before the tile and the rolls."""
@@ -419,7 +507,7 @@ def main(out=ROOT / "tetra_tpu_torch" / "data" / "prod_mixed.npz"):
 
 
 if __name__ == "__main__":
-    modes = ["prod", "parity", "snr8", "snr8parity", "steady"]
+    modes = ["prod", "parity", "pyplane", "snr8", "snr8parity", "steady"]
     which = sys.argv[1:] or modes
     if not set(which) <= set(modes):
         sys.exit(f"usage: {sys.argv[0]} [{'|'.join(modes)}]")
@@ -427,6 +515,8 @@ if __name__ == "__main__":
         main()
     if "parity" in which:
         main_parity()
+    if "pyplane" in which:
+        main_pyplane()
     if "snr8" in which:
         main_snr8()
     if "snr8parity" in which:
