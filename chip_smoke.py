@@ -34,11 +34,37 @@ Phases (one JSON line each):
               receiver's record in the fixture; K1 and K6 launched.
      cli      python3 -m tetra_tpu_torch.rx -f bits, and -f iq on a
               cfile modulated from the same bits, in subprocesses on the
-              card and with --device cpu: identical stdout and dumps.
+              card and with --device cpu: identical stdout and dumps;
+              and python3 -m tetra_tpu_torch.receiver --file (that
+              cfile), --udp (the bits over loopback) and --audio (96 kHz
+              s16le PCM, carrier at +5 kHz, --calibration 5000), the
+              same way: identical stdout, stderr summary and dumps.
      python_small  the 8-carrier capture through
               control_plane="python" (process_iq4c and process_iq8) on
               the card and on the CPU: identical per-carrier log lines,
               stats and TL-SDU sink calls.
+     mixer_small  the JAX mixer test's two-cell capture at 144 kHz with
+              off-grid carriers (-31,400, +13,700 Hz) through the
+              mixer bank on both planes: card = CPU (stats, log lines,
+              native events), the card's run cut at 4,097, 11,003 and
+              23,456 = its whole run, stats, cells and SSIs = the JAX
+              record (prod_fixture.mixer_record).
+     mixer    mixer-64, the live CLI end to end at full width: a mock
+              rtl_tcp server process (tools/rtl_tcp_mock.py) serves 64
+              off-grid carriers at 1.8 MS/s (1.0346 s, 6 TEA1) and
+              tetra_tpu_torch.receiver.main --rtltcp --carriers <64
+              offsets> -k runs warm and timed on each plane: every
+              carrier = the JAX mixer record, 4 log digests equal,
+              Python plane = native plane, K1 launched on both;
+              wall_s, realtime_carriers and the front end's device
+              split (mix, FIR, resample, demod; CUDA events on one
+              chunk) with its share of the pass.
+     scan     scan.scan(confirm=True) on the JAX scan test's 400 kHz
+              two-cell u8 capture on the card and the CPU, and the CLI's
+              --carriers auto on both planes and devices (the on-grid
+              carriers through the PFB: K1, K2, K3 launched): equal to
+              the JAX record; detect_carriers on mixer-64: the JAX
+              record's candidates, SNRs and channel powers to 0.1 dB.
   4. prod     the 1024-carrier production capture (25 kHz spacing,
               fs 25.6 MS/s, 4 chunks, 102 TEA1-encrypted carriers)
               once warm and once timed; zero CRC errors, decode counts
@@ -110,7 +136,8 @@ Then the kernel summary line (each kernel's launches on its main path,
 max_abs_err, ms, plain_ms, the bound computed from the run's shapes
 and what sets it, and library_ms: null, no single PyTorch call
 computes any of these functions; for K1, K2 and K3 also their launches
-on the Python plane's pass, for K3 its share of the bound; for K1, K2,
+on the Python plane's pass, for K1 also on the mixer pass's two planes,
+for K3 its share of the bound; for K1, K2,
 K4, K5 and K6 also resident blocks
 per SM, registers per thread and shared bytes per block at the main
 path's shape, for K2 dft_only_ms and for K6 empty_launch_ms), the
@@ -813,9 +840,408 @@ def check_cli(ks_path: str, fx: dict) -> dict:
                 "stdout_equal": outs["card"][0] == outs["cpu"][0],
                 "files_equal": outs["card"][1] == outs["cpu"][1],
                 "card_s": outs["card"][2], "cpu_s": outs["cpu"][2]}
+    res.update(check_receiver_cli(ks_path, bits))
     if not all(r["stdout_equal"] and r["files_equal"] and r["crc_ok_lines"]
-               for r in res.values()):
+               and r.get("stderr_equal", True) for r in res.values()):
         raise AssertionError(f"cli: card and CPU differ: {res}")
+    return res
+
+
+def udp_bound(port: int) -> bool:
+    """Whether a UDP socket is bound to `port` (Linux /proc/net/udp)."""
+    with open("/proc/net/udp") as f:
+        return any(int(ln.split()[1].split(":")[1], 16) == port
+                   for ln in f.readlines()[1:])
+
+
+def pcm_s16(iq) -> bytes:
+    """Complex samples -> interleaved stereo s16le PCM (I left, Q right)
+    at 0.8 of full scale, as an fcdp audio card delivers them."""
+    import numpy as np
+    inter = np.empty(2 * len(iq), np.float32)
+    inter[0::2], inter[1::2] = np.real(iq), np.imag(iq)
+    return (inter / np.abs(inter).max() * 0.8 * 32767).astype("<i2").tobytes()
+
+
+def check_receiver_cli(ks_path: str, bits) -> dict:
+    """python3 -m tetra_tpu_torch.receiver in subprocesses on the
+    rx_small carrier, once on the card (the default device) and once with
+    --device cpu: --file on a cfile modulated from its bits (-k, -d,
+    --voice), --udp with its bits sent over loopback in 1024-byte
+    datagrams once the receiver has bound its port, and --audio on 96
+    kHz s16le PCM with the carrier at +5 kHz (--calibration 5000). The
+    log lines (stdout), the stderr summary and the dump files must be
+    identical."""
+    import socket
+    import tempfile
+    import numpy as np
+    from tetra_tpu_torch import prod_fixture as P
+    from tetra_tpu_torch.phy import channelizer, dqpsk
+    root = pathlib.Path(__file__).resolve().parent
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        iq36 = dqpsk.modulate(bits, sps=2)
+        iq36.tofile(tmp / "cap.cfile")
+        (tmp / "cap.s16").write_bytes(pcm_s16(channelizer.synthesize_wideband(
+            iq36[None], [5_000.0], fs=96_000.0)))
+        modes = {"receiver_file": ["--file", str(tmp / "cap.cfile"), "-k",
+                                   ks_path, "--voice"],
+                 "receiver_udp": ["--fmt", "bits", "-k", ks_path],
+                 "receiver_audio": ["--audio", str(tmp / "cap.s16"),
+                                    "--calibration", "5000", "-k", ks_path]}
+        for mode, args in modes.items():
+            outs = {}
+            for name, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+                d = tmp / f"{mode}_{name}"
+                argv = [*args, "-d", str(d), *extra]
+                if mode == "receiver_udp":
+                    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+                        s.bind(("127.0.0.1", 0))
+                        port = s.getsockname()[1]
+                    argv = ["--udp", str(port), *argv]
+                t0 = time.perf_counter()
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "tetra_tpu_torch.receiver", *argv],
+                    cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)
+                try:
+                    if mode == "receiver_udp":
+                        while not udp_bound(port):
+                            if proc.poll() is not None or \
+                                    time.perf_counter() - t0 > 300:
+                                break
+                            time.sleep(0.1)
+                        with socket.socket(socket.AF_INET,
+                                           socket.SOCK_DGRAM) as s:
+                            for i in range(0, len(bits), 1024):
+                                s.sendto(np.asarray(bits[i:i + 1024],
+                                                    np.uint8).tobytes(),
+                                         ("127.0.0.1", port))
+                    out, err = proc.communicate(timeout=600)
+                finally:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+                if proc.returncode:
+                    raise AssertionError(f"cli {mode} {name}: rc "
+                                         f"{proc.returncode}: {err[-3000:]}")
+                outs[name] = (out, err.strip().splitlines()[-1],
+                              P.read_tree(d) if d.exists() else {},
+                              time.perf_counter() - t0)
+            lines = outs["card"][0].splitlines()
+            res[mode] = {
+                "crc_ok_lines": sum(ln.startswith("CRC COMP") and
+                                    ln.endswith(" OK") for ln in lines),
+                "crc_wrong_lines": sum(ln.startswith("CRC COMP") and
+                                       ln.endswith(" WRONG") for ln in lines),
+                "summary": outs["card"][1], "files": len(outs["card"][2]),
+                "stdout_equal": outs["card"][0] == outs["cpu"][0],
+                "stderr_equal": outs["card"][1] == outs["cpu"][1],
+                "files_equal": outs["card"][2] == outs["cpu"][2],
+                "card_s": outs["card"][3], "cpu_s": outs["cpu"][3]}
+    return res
+
+
+MIXER_CUTS = [4097, 11_003, 23_456]   # the JAX mixer test's cuts
+EV_KEYS = ("carrier", "kind", "a", "b", "c", "d", "payload")
+
+
+def mixer_small_run(dev, fxm: dict, plane: str, cuts=None) -> dict:
+    """The JAX mixer test's two-cell capture at 144 kHz (carriers at
+    -31,400 and +13,700 Hz) through a mixer-bank MultiCarrierReceiver
+    on `plane`, whole or cut at `cuts`: per-carrier stats (bursts, slots,
+    crc_ok, crc_wrong), cells, RESOURCE SSIs, log lines and the native
+    event arrays."""
+    import numpy as np
+    from tetra_tpu_torch import prod_fixture as P
+    from tetra_tpu_torch.rx_multi import MultiCarrierReceiver
+    from tetra_tpu_torch.umac.native_exec import EV
+    wide, offs, fs = P.small_capture(fxm)
+    logs = [[], []]
+    m = MultiCarrierReceiver(offs, fs=fs, control_plane=plane, device=dev,
+                             log=[P.line_logger(lg) for lg in logs])
+    edges = [0] + [c for c in (cuts or []) if c < len(wide)] + [len(wide)]
+    for i in range(len(edges) - 1):
+        m.process_iq(wide[edges[i]:edges[i + 1]], final=i == len(edges) - 2)
+    out = {"stats": [(c.stats.bursts, c.stats.slots, c.stats.crc_ok,
+                      c.stats.crc_wrong) for c in m.carriers],
+           "cells": [(c.mcc, c.mnc, c.colour_code) for c in m.carriers],
+           "logs": logs, "events": None}
+    if plane == "python":
+        out["ssis"] = [[e[1].addr.ssi for e in c.umac.events
+                        if e[0] == "RESOURCE" and e[1].addr.type == 1]
+                       for c in m.carriers]
+    else:
+        ev = {k: np.concatenate([e[k] for e in m.native_events])
+              for k in EV_KEYS}
+        res = (ev["kind"] == EV.RESOURCE) & (ev["a"] == 1)
+        out["ssis"] = [ev["b"][res & (ev["carrier"] == c)].tolist()
+                       for c in range(2)]
+        out["events"] = ev
+    return out
+
+
+def check_mixer_small(dev, fxm: dict) -> dict:
+    """The two-cell off-grid capture on both planes: the card equals the
+    CPU (stats, log lines, native event arrays), the card's run cut at
+    MIXER_CUTS equals its whole run, and stats, cells and SSIs equal the
+    JAX record (prod_fixture.mixer_record "small"); K1 launched."""
+    import numpy as np
+    from tetra_tpu_torch import prod_fixture as P
+    rec = P.mixer_record(fxm)["small"]
+    want = {"stats": [r[0] for r in rec], "cells": [r[1] for r in rec],
+            "ssis": [list(r[2]) for r in rec]}
+    res = {}
+    for plane in ("python", "native"):
+        reset_launches()
+        card = mixer_small_run(dev, fxm, plane)
+        n_launch = launches()
+        cpu = mixer_small_run("cpu", fxm, plane)
+        cut = mixer_small_run(dev, fxm, plane, MIXER_CUTS)
+        same_ev = (plane == "python" or all(
+            np.array_equal(card["events"][k], cpu["events"][k])
+            for k in EV_KEYS))
+        keys = ("stats", "cells", "ssis", "logs")
+        res[plane] = {
+            "stats": card["stats"], "cells": card["cells"],
+            "ssis": card["ssis"],
+            "log_lines": sum(len(lg) for lg in card["logs"]),
+            "card_equals_cpu": all(card[k] == cpu[k] for k in keys)
+            and same_ev,
+            "chunked_equals_whole": all(card[k] == cut[k] for k in keys),
+            "equals_jax_record": all(card[k] == want[k] for k in want),
+            "launches": n_launch}
+    if not all(r["card_equals_cpu"] and r["chunked_equals_whole"]
+               and r["equals_jax_record"]
+               and r["launches"]["viterbi_assembled"] > 0
+               for r in res.values()):
+        raise AssertionError(f"mixer_small: {res}")
+    return res
+
+
+def mixer_cli(u8, fs: float, carriers: str, ks_path, plane: str, dev,
+              log=None, n: int | None = None):
+    """One run of the live CLI (tetra_tpu_torch.receiver.main --rtltcp)
+    against a mock rtl_tcp server process serving `u8`, streaming n
+    complex samples (all of u8 by default) after any scan; plane
+    "python" is the CLI default. Returns (receiver, wall seconds from
+    the call to its return after a synchronize, server commands)."""
+    import torch
+    import rtl_tcp_mock
+    from tetra_tpu_torch import receiver
+    dev = torch.device(dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    n = len(u8) // 2 if n is None else n
+    with rtl_tcp_mock.serve(u8) as srv:
+        argv = ["--rtltcp", f"127.0.0.1:{srv.port}", "--rate", str(int(fs)),
+                f"--carriers={carriers}", "--secs", repr((n + 0.5) / fs)]
+        argv += ["-k", ks_path] if ks_path else []
+        argv += ["--control-plane", "native"] if plane == "native" else []
+        argv += ["--device", "cpu"] if dev.type == "cpu" else []
+        sync()
+        t0 = time.perf_counter()
+        mrx = receiver.main(argv, log=log)
+        sync()
+        wall = time.perf_counter() - t0
+    return mrx, wall, srv.commands
+
+
+def mixer_split(dev, u8, offsets, fs: float) -> dict:
+    """Device time (CUDA events, mean of 5 after a warm-up) of each stage
+    of the mixer front end on one continuation chunk of the mixer pass
+    (the 2 x BLOCK history + the BLOCK-aligned 0.5 s): oscillator mix,
+    127-tap FIR (both planes), resampler (both planes), hard demod at
+    os=4; and the front end's time per pass, estimated from the chunk's
+    cost per new sample."""
+    import numpy as np
+    import torch
+    from profile_torch_demod import cuda_ms
+    from tetra_tpu_torch import prod_fixture as P
+    from tetra_tpu_torch.io.sdr import RtlTcpSource
+    from tetra_tpu_torch.phy import channelizer as ch, dqpsk
+    from tetra_tpu_torch.rx_multi import mixer_block
+    block = mixer_block(fs)[0]
+    new = (P.MIXER_CHUNK // block) * block
+    n_feed = 2 * block + new
+    iq = RtlTcpSource._to_complex(u8[:2 * n_feed])
+    raw = torch.as_tensor(np.ascontiguousarray(iq).view(np.float32),
+                          device=dev)
+    re, im = raw[0::2].contiguous(), raw[1::2].contiguous()
+    taps = ch.design_lowpass(fs, ch.CUTOFF, 127)
+    base = P.MIXER_CHUNK
+    mr, mi = ch._mix_ri(re, im, offsets, fs, base)
+    fr, fi = ch._fir_real(mr, taps), ch._fir_real(mi, taps)
+    cr = ch._resample_ri_one(fr, n_feed, fs, ch.DEMOD_RATE)
+    ci = ch._resample_ri_one(fi, n_feed, fs, ch.DEMOD_RATE)
+    ms = {"mix": cuda_ms(lambda: ch._mix_ri(re, im, offsets, fs, base), 5),
+          "fir": cuda_ms(lambda: (ch._fir_real(mr, taps),
+                                  ch._fir_real(mi, taps)), 5),
+          "resample": cuda_ms(lambda: (
+              ch._resample_ri_one(fr, n_feed, fs, ch.DEMOD_RATE),
+              ch._resample_ri_one(fi, n_feed, fs, ch.DEMOD_RATE)), 5),
+          "demod": cuda_ms(lambda: dqpsk.demodulate_hard_ri(cr, ci, sps=2,
+                                                           os=4), 5)}
+    # the composed stages are channelize_ri + the demod
+    bits = dqpsk.demodulate_hard_ri(cr, ci, sps=2, os=4)
+    whole = dqpsk.demodulate_hard_ri(*ch.channelize_ri(
+        re, im, offsets, fs, base=base), sps=2, os=4)
+    if not torch.equal(bits, whole):
+        raise AssertionError("mixer_split: the stages differ from "
+                             "channelize_ri")
+    chunk_ms = sum(ms.values())
+    return {"feed_samples": n_feed, "new_samples": new,
+            "carriers": len(offsets), "ms": ms, "chunk_ms": chunk_ms,
+            "pass_ms_est": chunk_ms * (len(u8) // 2) / new}
+
+
+def run_mixer(ks_path: str, dev, fx: dict, fxm: dict, card: str):
+    """mixer-64, the live CLI end to end at full width: a mock rtl_tcp
+    server process serves the 64-carrier off-grid u8 capture
+    (prod_fixture.mixer_capture, 1.8 MS/s, 1.0346 s), and
+    tetra_tpu_torch.receiver.main --rtltcp --rate 1800000 --carriers
+    <64 offsets> -k <keystore> runs once warm and once timed on each
+    plane (the Python plane, the CLI default, with log lines kept on
+    MIXER_LOG_CHANNELS). Every carrier's (bursts, crc_ok, crc_wrong)
+    and cell equal the JAX mixer record, the 4 log digests equal, the
+    Python plane equals the native plane, K1 launched on both; the
+    Python pass's host split (utils.trace pyplane.*) and a profiled
+    native pass's device busy time and idle share (torch.profiler).
+    Returns (the phase's record, the u8 capture)."""
+    from profile_torch_prod import device_profile
+    from tetra_tpu_torch import prod_fixture as P
+    from tetra_tpu_torch.utils import trace
+    t0 = time.perf_counter()
+    bits = P.mixed_bits(P.MIXER_CARRIERS, 0.1, fx)[0][fxm["mixer_rows"]]
+    u8 = P.mixer_capture(bits, fxm["mixer_bins"])
+    build_s = time.perf_counter() - t0
+    offsets = fxm["mixer_offsets"]
+    carriers = ",".join(repr(float(o)) for o in offsets)
+    rec = P.mixer_record(fxm)
+    n = len(u8) // 2
+    stream_s = n / P.MIXER_FS
+    res = {"carriers": len(offsets), "fs": P.MIXER_FS, "samples": n,
+           "stream_s": stream_s, "capture_build_s": build_s, "card": card}
+    got = {}
+    for plane in ("python", "native"):
+        _, warm, _ = mixer_cli(u8, P.MIXER_FS, carriers, ks_path, plane, dev)
+        logs = {c: [] for c in P.MIXER_LOG_CHANNELS}
+        log = ([P.line_logger(logs[c]) if c in logs else (lambda *a: None)
+                for c in range(len(offsets))] if plane == "python" else None)
+        trace.clear_timings()
+        reset_launches()
+        mrx, wall, cmds = mixer_cli(u8, P.MIXER_FS, carriers, ks_path, plane,
+                                    dev, log=log)
+        n_launch = launches()
+        split = {k.split(".", 1)[1] + "_s": v["total_s"]
+                 for k, v in trace.timings().items()
+                 if k.startswith("pyplane.")}
+        got[plane] = [((c.stats.bursts, c.stats.crc_ok, c.stats.crc_wrong),
+                       (c.mcc, c.mnc, c.colour_code)) for c in mrx.carriers]
+        differ = [c for c, g in enumerate(got[plane])
+                  if g != rec["mixer"][c]]
+        res[plane] = {
+            "warm_s": warm, "wall_s": wall,
+            "realtime_carriers": len(offsets) * stream_s / wall,
+            "mixer_front_end": mrx.pfb_channels is None,
+            "crc_ok": sum(g[0][1] for g in got[plane]),
+            "crc_wrong": sum(g[0][2] for g in got[plane]),
+            "bursts": sum(g[0][0] for g in got[plane]),
+            "carriers_differing_from_jax": differ,
+            "rate_command": dict(cmds).get(2), "launches": n_launch}
+        if plane == "python":
+            res[plane]["log_digests_equal_jax"] = {
+                c: P.digest(logs[c]) == d
+                for c, d in rec["mixer_logs"].items()}
+            res[plane]["log_lines"] = {c: len(v) for c, v in logs.items()}
+            res[plane]["host_split"] = {
+                **split, "other_s": wall - sum(split.values())}
+    res["python_equals_native"] = got["python"] == got["native"]
+    # device busy time and idle share of one more native pass
+    prof = device_profile(lambda: mixer_cli(u8, P.MIXER_FS, carriers,
+                                            ks_path, "native", dev), card)
+    res["native_profile"] = {**prof, "top_kernels": prof["top_kernels"][:8]}
+    res["split"] = mixer_split(dev, u8, offsets, P.MIXER_FS)
+    res["split"]["share_of_python_pass"] = \
+        res["split"]["pass_ms_est"] / (1e3 * res["python"]["wall_s"])
+    res["split"]["share_of_native_pass"] = \
+        res["split"]["pass_ms_est"] / (1e3 * res["native"]["wall_s"])
+    ok = (res["python_equals_native"]
+          and all(not res[p]["carriers_differing_from_jax"]
+                  and res[p]["mixer_front_end"]
+                  and res[p]["launches"]["viterbi_assembled"] > 0
+                  for p in ("python", "native"))
+          and all(res["python"]["log_digests_equal_jax"].values()))
+    if not ok:
+        raise AssertionError(f"mixer: {res}")
+    return res, u8
+
+
+def check_scan(dev, fxm: dict, mixer_u8) -> dict:
+    """The carrier scan and --carriers auto against the 400 kHz two-cell
+    u8 capture of the JAX scan test: scan.scan(confirm=True) on the card
+    and on the CPU, and the CLI's --rtltcp --carriers auto on both planes
+    and both devices (the confirmed on-grid carriers go through the PFB:
+    K2, K3), all equal to the JAX record and card equal to CPU; and
+    detect_carriers on mixer-64: the JAX record's candidates, SNRs and
+    raster channel powers to 0.1 dB."""
+    import numpy as np
+    import rtl_tcp_mock
+    from tetra_tpu_torch import prod_fixture as P, scan
+    from tetra_tpu_torch.io.sdr import RtlTcpSource
+    rec = P.mixer_record(fxm)
+    u8 = fxm["scan_u8"]
+    fs = float(fxm["scan_fs"])
+    iq = RtlTcpSource._to_complex(u8)
+    want = sorted((o, k, cell, ok) for o, _, k, cell, ok in rec["scan"])
+    res = {"scan": {}, "auto": {}}
+    snr = {}
+    for d in (dev, "cpu"):
+        results, _ = scan.scan(iq, fs, confirm=True, device=d)
+        snr[str(d)] = [r["snr_db"] for r in results]
+        res["scan"][str(d)] = sorted(
+            (r["offset_hz"], r["confirmed"],
+             (r["mcc"], r["mnc"], r["colour_code"]), r["crc_ok"])
+            for r in results)
+    res["scan_equals_jax"] = all(v == want for v in res["scan"].values())
+    res["scan_snr_db"] = snr[str(dev)]
+    res["scan_snr_max_diff_jax"] = max(
+        abs(a - r[1]) for a, r in zip(snr[str(dev)], rec["scan"]))
+    payload = rtl_tcp_mock.scan_payload(u8, fs)
+    want_auto = sorted(rec["auto"])
+    for d in (dev, "cpu"):
+        for plane in ("python", "native"):
+            if d is dev:
+                reset_launches()
+            mrx, _, _ = mixer_cli(payload, fs, "auto", None, plane, d,
+                                  n=len(u8) // 2)
+            got = sorted(((c.stats.bursts, c.stats.crc_ok, c.stats.crc_wrong),
+                          (c.mcc, c.mnc, c.colour_code))
+                         for c in mrx.carriers)
+            res["auto"][f"{d}_{plane}"] = {
+                "carriers": got, "pfb": mrx.pfb_channels is not None,
+                "equals_jax": got == want_auto,
+                **({"launches": launches()} if d is dev else {})}
+    off, dsnr, (_, power, _) = scan.detect_carriers(
+        RtlTcpSource._to_complex(mixer_u8), P.MIXER_FS, device=dev)
+    j_off, j_snr, j_power = rec["detect"]
+    res["mixer64_detect"] = {
+        "candidates": len(off), "jax_candidates": len(j_off),
+        "offsets_equal": bool(np.array_equal(off, j_off)),
+        "snr_max_diff_db": float(np.abs(dsnr - j_snr).max()) if len(off)
+        else 0.0,
+        "power_max_diff_db": float(np.abs(power - j_power).max()),
+        "channels": len(power)}
+    det = res["mixer64_detect"]
+    ok = (res["scan_equals_jax"] and res["scan_snr_max_diff_jax"] <= 0.1
+          and all(v["equals_jax"] and v["pfb"] for v in res["auto"].values())
+          and all(res["auto"][f"{dev}_{p}"]["launches"][k] > 0
+                  for p in ("python", "native")
+                  for k in ("viterbi_assembled", "pfb_wola", "resample_rows"))
+          and det["offsets_equal"] and det["snr_max_diff_db"] <= 0.1
+          and det["power_max_diff_db"] <= 0.1)
+    if not ok:
+        raise AssertionError(f"scan: {res}")
     return res
 
 
@@ -1490,6 +1916,12 @@ def main() -> int:
             emit({"phase": "cli", **check_cli(ks_path, fx)})
             emit({"phase": "python_small",
                   **check_python_small(ks_path, dev, fx)})
+            fxm = prod_fixture.load_mixer()
+            emit({"phase": "mixer_small", **check_mixer_small(dev, fxm)})
+            mixer, mixer_u8 = run_mixer(ks_path, dev, fx, fxm, card)
+            emit({"phase": "mixer", **mixer})
+            emit({"phase": "scan", **check_scan(dev, fxm, mixer_u8)})
+            del mixer_u8
 
             t0 = time.perf_counter()
             bits, n_enc = prod_fixture.mixed_bits(N_CAR, 0.1, fx)
@@ -1580,6 +2012,10 @@ def main() -> int:
              "replaces": "tetra_tpu/ops/viterbi_pallas.py:631",
              "launches": n_launch["viterbi_assembled"],
              "python_plane_launches": p_launch["viterbi_assembled"],
+             "mixer_launches": mixer["python"]["launches"][
+                 "viterbi_assembled"],
+             "mixer_native_launches": mixer["native"]["launches"][
+                 "viterbi_assembled"],
              "max_abs_err": float(max(k1["max_abs_err"],
                                       k1s["max_abs_err"])),
              "ms": k1["ms_n288"], "plain_ms": k1["plain_ms_n288"],

@@ -92,7 +92,9 @@ def test_bits_entry_matches_jax():
 def test_import_is_jax_free(tmp_path):
     """A fresh interpreter imports every module of the port, runs a
     2-carrier wideband slice with traffic dumps, voice decode, GSMTAP
-    and a TL-SDU sink, and never loads jax nor any tetra_tpu module."""
+    and a TL-SDU sink, the mixer bank on the 2-cell off-grid capture,
+    the carrier scan and the receiver CLI on a bits file, and never
+    loads jax nor any tetra_tpu module."""
     code = """
 import importlib, pkgutil, sys
 import numpy as np
@@ -115,6 +117,18 @@ assert all(s.crc_ok > 0 and s.crc_wrong == 0 for s in stats), stats
 assert sdus
 import pathlib
 assert list(pathlib.Path(sys.argv[1]).rglob("voice_*.cod"))
+from tetra_tpu_torch import receiver, scan
+from tetra_tpu_torch.io.sdr import RtlTcpSource
+fxm = prod_fixture.load_mixer()
+wide, offs, fs = prod_fixture.small_capture(fxm)
+stats = rm.MultiCarrierReceiver(offs, fs=fs, device="cpu").process_iq(wide)
+assert all(s.crc_ok > 0 and s.crc_wrong == 0 for s in stats), stats
+res, _ = scan.scan(RtlTcpSource._to_complex(fxm["scan_u8"]),
+                   float(fxm["scan_fs"]), device="cpu")
+assert sum(r["confirmed"] for r in res) == 2, res
+cap = pathlib.Path(sys.argv[1]) / "cap.bits"
+prod_fixture.rx_small_bits().tofile(cap)
+receiver.main(["--file", str(cap), "--device", "cpu"], log=lambda *a: None)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "tetra_tpu"))
 assert not bad, bad
@@ -129,10 +143,12 @@ print("ok")
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(pfb_channels=None),
+    dict(pfb_channels=None, mesh=object()),
     dict(mesh=object()),
 ])
 def test_unported_options_raise(kwargs):
+    """Mesh sharding raises on both front ends (the mixer bank, without
+    pfb_channels, is ported)."""
     base = dict(fs=2e5, pfb_channels=np.arange(8), n_chan=8, device=CPU)
     base.update(kwargs)
     with pytest.raises(NotImplementedError):
@@ -155,7 +171,7 @@ def test_port_sources_import_nothing_of_jax_package():
     """No module of the port, nor chip_smoke.py, nor the port's profiling
     and bench tools imports tetra_tpu (as opposed to tetra_tpu_torch)."""
     files = sorted((ROOT / "tetra_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py",
+    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "rtl_tcp_mock.py",
               *sorted((ROOT / "tools").glob("profile_torch_*.py")),
               *sorted((ROOT / "tools").glob("bench_torch_*.py"))]
     assert len(files) > 30

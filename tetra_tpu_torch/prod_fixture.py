@@ -17,6 +17,16 @@ this module rebuilds the bench's companded wideband capture with numpy
 copies of the fixture chain: safe_rolls -> dqpsk.modulate ->
 channelizer.synthesize_wideband_fft -> stream.quantize_iq4c.
 
+`data/mixer_offgrid.npz` holds what the mixer-bank checks need
+(`load_mixer`): the full-width off-grid configuration mixer-64 (carrier
+k of mixed_bits(64, 0.1) at the exact spectrum bin nearest 25 kHz x
+(k - 32) + 1,370 Hz of a 1.8 MS/s capture, the live CLI's default rate;
+`mixer_capture` rebuilds its rtl_tcp u8 bytes: modulate,
+channelizer.synthesize_wideband_bins, `u8_iq`), the two-cell capture's
+bits of the JAX mixer test at 144 kHz (`small_capture`), the 400 kHz
+two-cell u8 capture of the JAX scan test, and the JAX package's records
+on all three (`mixer_record`).
+
 `data/snr8_clean.npz` holds the padded clean 16-frame SYNC/SCH_F row of
 tools/bench_mc_e2e.run_snr8 (bit-packed), its n_tail, the JAX package's
 recorded counts for that stage and its soft path's stats on 16 named
@@ -37,7 +47,8 @@ import numpy as np
 import torch
 
 from tetra_tpu_torch.io.stream import quantize_iq4c
-from tetra_tpu_torch.phy.channelizer import synthesize_wideband_fft
+from tetra_tpu_torch.phy.channelizer import DEMOD_RATE, \
+    synthesize_wideband, synthesize_wideband_bins, synthesize_wideband_fft
 from tetra_tpu_torch.phy.dqpsk import modulate
 
 __all__ = ["DATA_PATH", "SNR8_PATH", "KEYSTORE", "BITRATE", "load",
@@ -45,10 +56,13 @@ __all__ = ["DATA_PATH", "SNR8_PATH", "KEYSTORE", "BITRATE", "load",
            "snr8_bits", "snr8_capture", "keystore_file", "run_receiver",
            "expected_traffic", "wideband_record", "soft_record",
            "python_record", "rx_small_bits", "line_logger", "digest",
-           "read_tree"]
+           "read_tree", "MIXER_PATH", "MIXER_FS", "MIXER_CHUNK",
+           "MIXER_LOG_CHANNELS", "mixer_bins", "u8_iq", "load_mixer",
+           "mixer_capture", "small_capture", "mixer_record"]
 
 DATA_PATH = pathlib.Path(__file__).parent / "data" / "prod_mixed.npz"
 SNR8_PATH = pathlib.Path(__file__).parent / "data" / "snr8_clean.npz"
+MIXER_PATH = pathlib.Path(__file__).parent / "data" / "mixer_offgrid.npz"
 HEAD_NOISE = 731
 BITRATE = 36_000.0     # bits/s per carrier: the real-time reference
 
@@ -283,3 +297,103 @@ def run_receiver(packed: np.ndarray, n_car: int, ks_path: str | None,
                          final=k == n_chunks - 1)
     sync()
     return mrx, time.perf_counter() - t0
+
+
+# mixer-64: the live CLI's defaults (tetra_tpu/receiver.py: --rate 1.8e6,
+# 0.5 s chunks); 64 carriers 25 kHz apart, each 1,370 Hz off the grid
+MIXER_FS = 1_800_000.0
+MIXER_CHUNK = int(MIXER_FS // 2)
+MIXER_CARRIERS = 64
+MIXER_SKEW_HZ = 1_370.0
+# carriers whose Python-plane log digests the record holds (57: the last
+# plain one; 58-63 are TEA1-encrypted)
+MIXER_LOG_CHANNELS = (0, 32, 57, 63)
+
+
+def mixer_bins(n_car: int, n_in: int) -> np.ndarray:
+    """Spectrum bins of the off-grid carriers of an n_in-sample stream at
+    the demod rate: carrier k at the bin (1/dur Hz each) nearest 25 kHz x
+    (k - n_car/2) + MIXER_SKEW_HZ, so the FFT synthesis places it
+    exactly."""
+    dur = n_in / DEMOD_RATE
+    hz = 25_000.0 * (np.arange(n_car) - n_car // 2) + MIXER_SKEW_HZ
+    return np.round(hz * dur).astype(np.int64)
+
+
+def u8_iq(wide: np.ndarray) -> np.ndarray:
+    """Complex capture -> rtl_tcp's interleaved u8 I/Q, as
+    tests/test_sdr.make_wideband makes it: complex AWGN of 3e-3 per
+    component from default_rng(9), scaled to 1/1.05 of full scale,
+    rounded about 127.5."""
+    rng = np.random.default_rng(9)
+    wide = wide + 3e-3 * (rng.standard_normal(len(wide))
+                           + 1j * rng.standard_normal(len(wide))
+                           ).astype(np.complex64)
+    wide /= np.abs(wide).max() * 1.05
+    u8 = np.empty(2 * len(wide), np.uint8)
+    u8[0::2] = np.round(wide.real * 127.5 + 127.5).astype(np.uint8)
+    u8[1::2] = np.round(wide.imag * 127.5 + 127.5).astype(np.uint8)
+    return u8
+
+
+def load_mixer(path=MIXER_PATH) -> dict:
+    """The mixer fixture's arrays, with 'small_bits' [2, L] unpacked."""
+    with np.load(path) as z:
+        d = {k: z[k] for k in z.files}
+    d["small_bits"] = np.unpackbits(d["small_bits_packed"], axis=1)[
+        :, :int(d["small_len"])]
+    return d
+
+
+def mixer_capture(bits: np.ndarray, bins: np.ndarray) -> np.ndarray:
+    """Per-carrier bits [C, L] -> the u8 capture at MIXER_FS with carrier
+    c on spectrum bin bins[c] (mixer-64: mixed_bits(64, 0.1) and the
+    stored mixer_bins)."""
+    wide = synthesize_wideband_bins(modulate(bits, sps=2), bins, MIXER_FS)
+    return u8_iq(wide)
+
+
+def small_capture(fxm: dict) -> tuple[np.ndarray, np.ndarray, float]:
+    """The JAX mixer test's two-cell capture: (complex64 samples,
+    offsets [2] float32, fs)."""
+    offsets = fxm["small_offsets"]
+    fs = float(fxm["small_fs"])
+    wide = synthesize_wideband(modulate(fxm["small_bits"], sps=2),
+                               offsets, fs=fs)
+    return wide, offsets, fs
+
+
+def mixer_record(fxm: dict) -> dict:
+    """The JAX package's records (tools/make_torch_fixture.py mixer):
+
+    - "mixer": {carrier: ((bursts, crc_ok, crc_wrong), (mcc, mnc, cc))}
+      of its mixer-bank receiver on mixer-64 (Python plane, keystore,
+      run_rtltcp's 0.5 s chunks; its native plane gives the same),
+      "mixer_logs": {carrier: log digest} on MIXER_LOG_CHANNELS, and
+      "detect": (offsets, snr_db, power_db of each raster channel) of
+      scan.detect_carriers on it;
+    - "small": per carrier ((bursts, slots, crc_ok, crc_wrong), (mcc,
+      mnc, cc), [RESOURCE SSIs]) on the two-cell 144 kHz capture;
+    - "scan": per candidate (offset, snr_db, confirmed, (mcc, mnc, cc),
+      crc_ok) of scan.scan(confirm=True) on the 400 kHz u8 capture, and
+      "auto": per carrier ((bursts, crc_ok, crc_wrong), (mcc, mnc, cc))
+      of its CLI's --rtltcp --carriers auto on that capture."""
+    tup = lambda a: tuple(int(v) for v in a)
+    return {
+        "mixer": {c: (tup(st), tup(cell)) for c, (st, cell) in enumerate(
+            zip(fxm["jax_mixer_stats"], fxm["jax_mixer_cells"]))},
+        "mixer_logs": {int(c): str(d) for c, d in zip(
+            fxm["jax_mixer_log_channels"], fxm["jax_mixer_log_digests"])},
+        "detect": (fxm["jax_mixer_detect_offsets"],
+                   fxm["jax_mixer_detect_snr"],
+                   fxm["jax_mixer_channel_power"]),
+        "small": [(tup(st), tup(cell), tup(ssi)) for st, cell, ssi in zip(
+            fxm["jax_small_stats"], fxm["jax_small_cells"],
+            fxm["jax_small_ssis"])],
+        "scan": [(float(o), float(s), bool(k), tup(cell), int(ok))
+                 for o, s, k, cell, ok in zip(
+                     fxm["jax_scan_offsets"], fxm["jax_scan_snr"],
+                     fxm["jax_scan_confirmed"], fxm["jax_scan_cells"],
+                     fxm["jax_scan_crc_ok"])],
+        "auto": [(tup(st), tup(cell)) for st, cell in zip(
+            fxm["jax_auto_stats"], fxm["jax_auto_cells"])]}

@@ -1,12 +1,22 @@
 """Multi-carrier receiver: wideband IQ -> N decoded carrier streams
-(port of the PFB branch of tetra_tpu.rx_multi).
+(port of tetra_tpu.rx_multi).
 
 Wideband samples in one of four ingest formats (`process_iq4c`, the
 production companded 4+4-bit IQ; `process_iq8`, interleaved int8;
 `process_iq4`, uniform 4+4-bit; `process_iq`, complex samples) or
 per-carrier hard bits (`process_bits`) in, per-carrier decode stats out.
-The front end (dequantize, PFB channelizer K2, resampler K3, hard demod
-at os=4) runs on the device, with overlap-save streaming across chunks.
+Two front ends run on the device, each with overlap-save streaming
+across chunks, then the hard demod at os=4:
+
+* the polyphase filterbank (`pfb_channels`: carriers on the 25 kHz grid
+  of n_chan channels): dequantize, PFB channelizer K2, resampler K3;
+* the mixer bank (the default: one carrier per entry of `offsets_hz`,
+  anywhere in the span): dequantize, then phy.channelizer.channelize_ri
+  (oscillator mix at absolute sample indices, 127-tap FIR, polyphase
+  resampler), plain PyTorch. Its streaming consumes BLOCK-aligned
+  quanta of whole fs/36k resampler periods, so a chunked stream gives
+  the bits of a whole-capture run; a rate whose fs/36k is not rational
+  with a small denominator is demodulated per call, statelessly.
 
 Two control planes, as in the JAX package:
 
@@ -37,20 +47,25 @@ voice frames too, decoded on the card by kernel K6).
 
 demod="soft" is the degraded-signal mode of the native plane: int8 soft
 demod, a sync scan that accepts 2 training-sequence bit errors, and the
-soft Viterbi (kernel K4) over the same kind-compacted FEC.
+soft Viterbi (kernel K4) over the same kind-compacted FEC. The mixer
+bank demodulates hard, as in tetra_tpu, and its bits enter the soft
+pipeline as full-confidence values: the combination warns.
 
-Not ported (NotImplementedError): the mixer-bank channelizer (no
-pfb_channels) and mesh sharding.
+Not ported (NotImplementedError): mesh sharding.
 """
 from __future__ import annotations
 
+import contextlib
 import os
+import warnings
 
 import numpy as np
 import torch
 
 from tetra_tpu_torch.device import resolve_device
-from tetra_tpu_torch.fastpath import FastChunkPipeline, _iq_frontend
+from tetra_tpu_torch.fastpath import FastChunkPipeline, _iq_frontend, \
+    _iq_to_ri
+from tetra_tpu_torch.phy import channelizer, dqpsk
 from tetra_tpu_torch.phy.sync_vec import MultiSync
 from tetra_tpu_torch.rx import RxStats, TetraReceiver, append_files, \
     decode_slots_multi, dump_blocks, voice_frames
@@ -59,7 +74,8 @@ from tetra_tpu_torch.umac.native_exec import EV, NativeControlPlane
 from tetra_tpu_torch.utils import trace
 from tetra_tpu_torch.utils.bits import bits_to_uint, pack_bits
 
-__all__ = ["MultiCarrierReceiver", "pfb_demod_bits_len"]
+__all__ = ["MultiCarrierReceiver", "pfb_demod_bits_len",
+           "mixer_demod_bits_len", "mixer_block"]
 
 
 def pfb_demod_bits_len(n_samples: int, n_chan: int, fs: float,
@@ -75,6 +91,32 @@ def pfb_demod_bits_len(n_samples: int, n_chan: int, fs: float,
     return 2 * (n_out // sps)
 
 
+def mixer_demod_bits_len(n_samples: int, fs: float, sps: int) -> int:
+    """Demod output bit count for an n_samples wideband feed through the
+    mixer-bank front end (closed form of
+    tetra_tpu.rx_multi._mixer_demod_bits_len): the FIR keeps the length,
+    the resampler gives n_out samples (the n_out of both its plans, 8
+    taps per phase, no skew), 2 bits per symbol."""
+    n_out = max(int((n_samples - 8) / (fs / channelizer.DEMOD_RATE)), 0)
+    return 2 * (n_out // sps)
+
+
+def mixer_block(fs: float):
+    """(BLOCK, L, M) of the mixer bank's overlap-save streaming at fs,
+    or None when fs/36k is not L/M with a small denominator: BLOCK is
+    whole resampler periods of L samples, at least 2048, with an even
+    number of demod bits (BLOCK/L * M); each continuation re-feeds
+    2 * BLOCK samples."""
+    lm = channelizer._rational_ratio(fs, channelizer.DEMOD_RATE)
+    if lm is None:
+        return None
+    L_, M_ = lm
+    BLOCK = L_ * max(1, -(-2048 // L_))
+    if ((BLOCK // L_) * M_) % 2:
+        BLOCK *= 2
+    return BLOCK, L_, M_
+
+
 class MultiCarrierReceiver:
     def __init__(self, offsets_hz, fs: float, sps: int = 2,
                  keystore_path: str | None = None,
@@ -85,9 +127,6 @@ class MultiCarrierReceiver:
                  decode_voice: bool = False,
                  tl_sdu_sink=None, mesh=None, demod: str = "hard",
                  device=None):
-        if pfb_channels is None:
-            raise NotImplementedError("the mixer-bank channelizer is not "
-                                      "ported; pass pfb_channels")
         if control_plane not in ("python", "native"):
             raise ValueError(f"control_plane must be 'python' or 'native', "
                              f"got {control_plane!r}")
@@ -98,13 +137,22 @@ class MultiCarrierReceiver:
                              "control plane)")
         if mesh is not None:
             raise NotImplementedError("mesh sharding is not ported")
+        if demod == "soft" and pfb_channels is None:
+            warnings.warn("demod='soft' on the mixer bank: its front end "
+                          "demodulates hard (as tetra_tpu does), so these "
+                          "carriers reach the soft Viterbi as "
+                          "full-confidence hard bits", RuntimeWarning,
+                          stacklevel=2)
         self.device = resolve_device(device)
+        self.offsets = np.asarray(offsets_hz, dtype=np.float32)
         self.fs = float(fs)
         self.sps = sps
-        self.pfb_channels = np.asarray(pfb_channels, np.int32)
+        self.pfb_channels = (np.asarray(pfb_channels, np.int32)
+                             if pfb_channels is not None else None)
         self.n_chan = (n_chan if n_chan is not None
                        else int(round(fs / 25_000.0)))
-        n_carriers = len(self.pfb_channels)
+        n_carriers = (len(self.pfb_channels) if self.pfb_channels is not None
+                      else len(self.offsets))
         self.carriers = []
         for i in range(n_carriers):
             # `log` may be one callable shared by all carriers or a
@@ -165,13 +213,18 @@ class MultiCarrierReceiver:
             self.sync = MultiSync(n_carriers, device=self.device)
             self._buf = np.zeros((n_carriers, 0), dtype=np.uint8)
             self._buf_base = 0
-        chans = torch.as_tensor(self.pfb_channels, dtype=torch.int64)
-        self._chan_idx = (None if np.array_equal(
-            self.pfb_channels, np.arange(self.n_chan))
-            else chans.to(self.device))
+        if self.pfb_channels is not None:
+            chans = torch.as_tensor(self.pfb_channels, dtype=torch.int64)
+            self._chan_idx = (None if np.array_equal(
+                self.pfb_channels, np.arange(self.n_chan))
+                else chans.to(self.device))
         self._wb_rem = None
         self._wb_hist = None
         self._wb_g = None
+        self._mx_rem = None
+        self._mx_hist = None
+        self._mx_pos = 0      # absolute sample index of the consumed head
+        self._mx_g = None
 
     def process_iq(self, wideband_iq, final: bool = True) -> list[RxStats]:
         """One chunk of wideband complex samples through the chain (sent
@@ -210,7 +263,9 @@ class MultiCarrierReceiver:
         The native plane dispatches the whole chunk (front end, sync,
         FEC, packing) as one device program; the Python plane runs the
         front end on the device and walks the kept bits through
-        process_bits."""
+        process_bits. Mixer-bank receivers take _mixer_stream."""
+        if self.pfb_channels is None:
+            return self._mixer_stream(raw, k, fmt, final)
         n = self.n_chan
         BLOCK = 25 * n
         W = 2 * BLOCK
@@ -260,6 +315,89 @@ class MultiCarrierReceiver:
         self._wb_hist = None
         self._wb_rem = self._wb_rem[:0]
         self._wb_g = None
+
+    def _mixer_stream(self, raw, k: int, fmt: str, final: bool):
+        """Overlap-save streaming for the mixer bank (carriers at any
+        offset; reference xlating FIR front end,
+        src/demod/osmosdr-tetra_demod_fft.py:74-80), as the PFB branch:
+        continuations re-feed the last W raw samples and drop the
+        re-derived bits; chunks are consumed in BLOCK-aligned quanta
+        (whole fs/36k resampler periods, sized to dominate the 127-tap
+        FIR + resampler + RRC memories, with an even number of demod
+        bits per block), and the oscillator runs at absolute sample
+        indices, so a chunked stream's bits equal a whole-capture run's.
+        A rate whose fs/36k is not rational with a small denominator is
+        demodulated per call, statelessly."""
+        blk = mixer_block(self.fs)
+        if blk is None:
+            if len(raw) == 0:
+                return self.process_bits(
+                    np.zeros((len(self.carriers), 0), np.uint8), final=final)
+            return self.process_bits(self._mixer_bits(raw, fmt, 0, None),
+                                     final=final)
+        BLOCK, L_, M_ = blk
+        W = 2 * BLOCK
+        if self._mx_rem is None:
+            self._mx_rem = raw[:0]
+        data = np.concatenate([self._mx_rem, raw])
+        total = len(data) // k
+        usable = (total // BLOCK) * BLOCK
+        if final:
+            usable = total
+        if usable == 0 or (self._mx_hist is None and usable < W
+                           and not final):
+            self._mx_rem = data
+            if final:
+                self._reset_mx_stream()
+                return self.process_bits(
+                    np.zeros((len(self.carriers), 0), np.uint8), final=True)
+            return [c.stats for c in self.carriers]
+        self._mx_rem = data[usable * k:]
+        chunk = data[: usable * k]
+        first = self._mx_hist is None
+        feed = chunk if first else np.concatenate([self._mx_hist, chunk])
+        base = self._mx_pos - (0 if first else W)
+        nbits = mixer_demod_bits_len(len(feed) // k, self.fs, self.sps)
+        keep = nbits if first else max(nbits - self._mx_g, 0)
+        if first and usable % BLOCK == 0:
+            # bits(L) is affine on BLOCK-aligned lengths with slope
+            # bpb/BLOCK: the first call yields the per-carrier bit count
+            # every continuation must drop
+            bpb = (BLOCK // L_) * M_
+            self._mx_g = nbits - bpb * (usable // BLOCK - 2)
+        hist_src = chunk if len(chunk) >= W * k else feed
+        self._mx_hist = hist_src[-W * k:]
+        self._mx_pos += usable
+        if final:
+            self._reset_mx_stream()
+        return self.process_bits(self._mixer_bits(feed, fmt, base, keep),
+                                 final=final)
+
+    def _reset_mx_stream(self):
+        self._mx_hist = None
+        self._mx_rem = self._mx_rem[:0]
+        self._mx_pos = 0
+        self._mx_g = None
+
+    def _mixer_bits(self, feed, fmt: str, base: int, keep: int | None):
+        """Mixer-bank front end on the device: raw samples in format
+        `fmt` (oscillator at absolute index base) -> channelize_ri ->
+        hard demod at os=4 -> the trailing `keep` bits (all when None)
+        [C, keep]; a device tensor on the native plane, host numpy on
+        the Python plane."""
+        python = self.control_plane == "python"
+        with trace.timer("pyplane.frontend") if python \
+                else contextlib.nullcontext():
+            re, im = _iq_to_ri(fmt, torch.as_tensor(np.asarray(feed))
+                               .to(self.device))
+            cr, ci = channelizer.channelize_ri(re, im, self.offsets,
+                                               self.fs, base=base)
+            bits = dqpsk.demodulate_hard_ri(cr, ci, sps=self.sps, os=4)
+            if keep is not None:
+                bits = bits[:, bits.shape[1] - keep:]
+            if python:
+                bits = bits.cpu().numpy().astype(np.uint8)
+        return bits
 
     def process_bits(self, bits, final: bool = True) -> list[RxStats]:
         """Per-carrier hard bits [C, T] -> per-carrier decode stats.

@@ -45,7 +45,13 @@ scrambling code, and each slot's expected kind and type-1 payloads; the
 Runs on the CPU with jax (the rows come from tetra_tpu's TX chain);
 the argument picks one file (default: all):
 
-    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [prod|parity|pyplane|snr8|snr8parity|steady]
+    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [prod|parity|pyplane|snr8|snr8parity|steady|mixer]
+
+mixer_offgrid.npz (`mixer`, after `prod`, whose rows it uses) holds the
+mixer-bank records of mixer_record: the off-grid full-width
+configuration mixer-64 (its bins and offsets; the capture is rebuilt,
+not stored), the two-cell 144 kHz capture's bits and the 400 kHz scan
+capture, each with the JAX package's result.
 """
 import contextlib
 import os
@@ -415,6 +421,147 @@ def main_snr8parity(out=ROOT / "tetra_tpu_torch" / "data" / "snr8_clean.npz"):
     print(f"wrote {out} ({out.stat().st_size} bytes)")
 
 
+def mixer_record() -> dict:
+    """The JAX package's mixer-bank records, written to
+    tetra_tpu_torch/data/mixer_offgrid.npz (prod_fixture.load_mixer):
+
+    - mixer-64: mixed_bits(64, 0.1) (6 TEA1 carriers), carrier k at the
+      exact bin nearest 25 kHz x (k - 32) + 1,370 Hz, fs 1.8 MS/s, built
+      by the port's numpy code (prod_fixture.mixer_capture, as
+      chip_smoke.py builds it), converted as rtl_tcp's client converts
+      it and fed in run_rtltcp's 0.5 s chunks to tetra_tpu's mixer-bank
+      MultiCarrierReceiver with the keystore, on the Python plane (logs
+      kept on MIXER_LOG_CHANNELS) and on the native plane, which must
+      agree; and scan.detect_carriers on the same capture (its
+      candidates and the power of each raster channel);
+    - the two-cell capture of tests/test_rx_multi at 144 kHz with the
+      off-grid offsets -31,400 and +13,700 Hz (its bits stored);
+    - the 400 kHz two-cell u8 capture of tests/test_sdr.make_wideband
+      (stored): scan.scan(confirm=True), and the CLI's --rtltcp
+      --carriers auto (Python plane) against a mock rtl_tcp server."""
+    import time
+    from tetra_tpu import receiver as jax_receiver
+    from tetra_tpu import scan as jax_scan
+    from tetra_tpu.io.sdr import RtlTcpSource
+    from tetra_tpu.rx_multi import MultiCarrierReceiver
+    from tests.test_rx_multi import _capture_bits
+    from tests.test_sdr import make_wideband
+    from tetra_tpu_torch import prod_fixture as P
+    import rtl_tcp_mock
+
+    rec = {}
+    fx = P.load()
+    bits, n_enc = P.mixed_bits(P.MIXER_CARRIERS, 0.1, fx)
+    assert n_enc == 6
+    bins = P.mixer_bins(P.MIXER_CARRIERS, bits.shape[1])
+    dur = bits.shape[1] / P.DEMOD_RATE
+    offsets = (bins / dur).astype(np.float32)
+    t0 = time.perf_counter()
+    u8 = P.mixer_capture(bits, bins)
+    print(f"mixer-64 capture: {len(u8) // 2} samples, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    iq = RtlTcpSource._to_complex(u8)
+    runs = {}
+    logs = {c: [] for c in P.MIXER_LOG_CHANNELS}    # the Python plane's
+    with P.keystore_file() as ks:
+        for plane in ("python", "native"):
+            t0 = time.perf_counter()
+            mc = MultiCarrierReceiver(
+                offsets, fs=P.MIXER_FS, keystore_path=ks,
+                control_plane=plane,
+                log=[P.line_logger(logs[c]) if c in logs
+                     else (lambda *a: None) for c in range(P.MIXER_CARRIERS)]
+                if plane == "python" else None)
+            for i in range(0, len(iq), P.MIXER_CHUNK):
+                mc.process_iq(iq[i:i + P.MIXER_CHUNK], final=False)
+            mc.process_iq(np.zeros(0, np.complex64), final=True)
+            runs[plane] = mc
+            print(f"mixer-64 {plane} plane: "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+    stats = lambda m: np.asarray([(c.stats.bursts, c.stats.crc_ok,
+                                   c.stats.crc_wrong) for c in m.carriers],
+                                 np.int32)
+    assert np.array_equal(stats(runs["python"]), stats(runs["native"]))
+    rec["mixer_rows"] = np.arange(P.MIXER_CARRIERS, dtype=np.int64)
+    rec["mixer_bins"] = bins
+    rec["mixer_offsets"] = offsets
+    rec["mixer_fs"] = np.float64(P.MIXER_FS)
+    rec["jax_mixer_stats"] = stats(runs["python"])
+    rec["jax_mixer_cells"] = np.asarray(
+        [(c.mcc, c.mnc, c.colour_code) for c in runs["python"].carriers],
+        np.int32)
+    rec["jax_mixer_log_channels"] = np.asarray(P.MIXER_LOG_CHANNELS,
+                                               np.int32)
+    rec["jax_mixer_log_digests"] = np.asarray(
+        [P.digest(logs[c]) for c in P.MIXER_LOG_CHANNELS])
+    det_off, det_snr, (_, power, _) = jax_scan.detect_carriers(
+        iq, P.MIXER_FS)
+    rec["jax_mixer_detect_offsets"] = np.asarray(det_off, np.float64)
+    rec["jax_mixer_detect_snr"] = np.asarray(det_snr, np.float64)
+    rec["jax_mixer_channel_power"] = np.asarray(power, np.float64)
+
+    # the two-cell capture of tests/test_rx_multi, off the grid at 144 kHz
+    a = _capture_bits(262, 42, 1, 0x200, seed=1)
+    b = _capture_bits(901, 7, 5, 0x300, seed=2)
+    n = min(len(a), len(b)) & ~1
+    small = np.stack([a[:n], b[:n]]).astype(np.uint8)
+    rec["small_bits_packed"] = np.packbits(small, axis=1)
+    rec["small_len"] = np.int64(n)
+    rec["small_offsets"] = np.asarray([-31_400.0, 13_700.0], np.float32)
+    rec["small_fs"] = np.float64(144_000.0)
+    wide, off_s, fs_s = P.small_capture(
+        {"small_bits": small, "small_offsets": rec["small_offsets"],
+         "small_fs": rec["small_fs"]})
+    mc = MultiCarrierReceiver(off_s, fs=fs_s)
+    mc.process_iq(wide)
+    rec["jax_small_stats"] = np.asarray(
+        [(c.stats.bursts, c.stats.slots, c.stats.crc_ok, c.stats.crc_wrong)
+         for c in mc.carriers], np.int32)
+    rec["jax_small_cells"] = np.asarray(
+        [(c.mcc, c.mnc, c.colour_code) for c in mc.carriers], np.int32)
+    rec["jax_small_ssis"] = np.asarray(
+        [[e[1].addr.ssi for e in c.umac.events
+          if e[0] == "RESOURCE" and e[1].addr.type == 1]
+         for c in mc.carriers], np.int32)
+
+    # the 400 kHz two-cell capture of tests/test_sdr: scan and --carriers auto
+    fs = 400_000.0
+    u8s, _ = make_wideband(fs)
+    rec["scan_u8"] = u8s
+    rec["scan_fs"] = np.float64(fs)
+    results, _ = jax_scan.scan(RtlTcpSource._to_complex(u8s), fs,
+                               confirm=True)
+    rec["jax_scan_offsets"] = np.asarray([r["offset_hz"] for r in results])
+    rec["jax_scan_snr"] = np.asarray([r["snr_db"] for r in results])
+    rec["jax_scan_confirmed"] = np.asarray([r["confirmed"] for r in results])
+    rec["jax_scan_cells"] = np.asarray(
+        [(r["mcc"], r["mnc"], r["colour_code"]) for r in results], np.int32)
+    rec["jax_scan_crc_ok"] = np.asarray([r["crc_ok"] for r in results],
+                                        np.int32)
+    with rtl_tcp_mock.serve(rtl_tcp_mock.scan_payload(u8s, fs)) as srv:
+        mrx = jax_receiver.main([
+            "--rtltcp", f"127.0.0.1:{srv.port}", "--rate", str(fs),
+            "--carriers", "auto", "--secs", repr((len(u8s) // 2 + 0.5) / fs)])
+    rec["jax_auto_stats"] = np.asarray(
+        [(c.stats.bursts, c.stats.crc_ok, c.stats.crc_wrong)
+         for c in mrx.carriers], np.int32)
+    rec["jax_auto_cells"] = np.asarray(
+        [(c.mcc, c.mnc, c.colour_code) for c in mrx.carriers], np.int32)
+    return rec
+
+
+def main_mixer(out=ROOT / "tetra_tpu_torch" / "data" / "mixer_offgrid.npz"):
+    rec = mixer_record()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(out, **rec)
+    print("jax mixer-64 totals (bursts, crc_ok, crc_wrong):",
+          rec["jax_mixer_stats"].sum(0).tolist(),
+          "detect:", rec["jax_mixer_detect_offsets"].tolist(),
+          "scan:", rec["jax_scan_offsets"].tolist(),
+          "auto:", rec["jax_auto_stats"].tolist())
+    print(f"wrote {out} ({out.stat().st_size} bytes)")
+
+
 STEADY_SLOTS = 64
 
 
@@ -507,7 +654,8 @@ def main(out=ROOT / "tetra_tpu_torch" / "data" / "prod_mixed.npz"):
 
 
 if __name__ == "__main__":
-    modes = ["prod", "parity", "pyplane", "snr8", "snr8parity", "steady"]
+    modes = ["prod", "parity", "pyplane", "snr8", "snr8parity", "steady",
+             "mixer"]
     which = sys.argv[1:] or modes
     if not set(which) <= set(modes):
         sys.exit(f"usage: {sys.argv[0]} [{'|'.join(modes)}]")
@@ -523,3 +671,5 @@ if __name__ == "__main__":
         main_snr8parity()
     if "steady" in which:
         main_steady()
+    if "mixer" in which:
+        main_mixer()
