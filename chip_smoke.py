@@ -132,11 +132,46 @@ Phases (one JSON line each):
               decoders=("fused",) and the default three, once warm and
               once timed each: every kind, crc_ok and payload as the
               fixture says, K5 and K1 launched by the timed pass.
+ 10. kernels  K5 at every rate it is built for (sps 1..11) against its
+              plain version on 64 clean carriers x 8,192 symbols and on a
+              ragged [7, 5,003]: bits and phase picks identical, metric
+              sums within 1e-5 relative; the kernel's and the plain
+              version's times and the bound at each rate.
+     k5_sps   locked_step_ri(fast="pallas", sps=1, 4, 8) on 512 carriers
+              of the steady fixture modulated at that rate: every output
+              of the first 64 carriers equal to the CPU plain chain's,
+              later carriers equal to their roll's, every slot equal to
+              the fixture at sps 4 and 8 (sps 1 aliases: its fixture
+              mismatches are printed), K5 (timed at that shape) and K1
+              launched.
+     tx       the steady fixture rebuilt by the port's tx on the card;
+              python3 -m tetra_tpu_torch.selftest in subprocesses on the
+              card and with --device cpu (identical stdout, exit 0, 0 CRC
+              errors); 262,144 SCH/F blocks + AACH encoded on the card
+              and decoded by decode_schf_burst (K1): all CRC-OK and
+              exact, card = CPU on the first 1,024.
+     eq_small the 8-carrier degraded capture (steady_fixture.eq_capture)
+              through locked_step_ri(fast="eq") on the card and on the
+              CPU (eq_differs: identical on every slot either
+              classifies, <= 1e-3 of the NDB slots' bits differing).
+     eq       steady-eq-4096 (run_eq): the recorded carriers equal the
+              JAX record and the CPU, each channel group's CRC-OK share
+              beside the record's, every CRC-OK slot equal to the
+              fixture; wall_s of fast="eq" and "pallas" on the same
+              planes, the eq layer split, fast=False on the clean
+              capture.
+     wide512  bench stage 5 (run_wide512): the 512-channel PFB (K2, K3)
+              feeding locked_step_ri(fast="pallas") (K5, K1) on noise at
+              the bench's shapes (card = CPU, samples per second) and on
+              the fixture's carriers on 8 channels (every slot decoded);
+              pfb_channelize_ri against K2's rows.
 Then the kernel summary line (each kernel's launches on its main path,
 max_abs_err, ms, plain_ms, the bound computed from the run's shapes
 and what sets it, and library_ms: null, no single PyTorch call
 computes any of these functions; for K1, K2 and K3 also their launches
-on the Python plane's pass, for K1 also on the mixer pass's two planes,
+on the Python plane's pass, for K1 also on the mixer pass's two planes
+and on the eq, wide512 and tx passes, for K2, K3 and K5 on wide512,
+one entry per K5 rate,
 for K3 its share of the bound; for K1, K2,
 K4, K5 and K6 also resident blocks
 per SM, registers per thread and shared bytes per block at the main
@@ -178,7 +213,14 @@ INT32_OPS = F32_FLOPS / 4
 RAW_BIT_LIMIT = 1e-5
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also gets t_s, the seconds since
+    the script started."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -217,11 +259,12 @@ def k2_bound(n_chan: int, T: int, frames: int, J: int = 16) -> dict:
                  F32_FLOPS)
 
 
-def k5_bound(n: int) -> dict:
-    """K5 on n samples: planes in (8 B a sample), bits out (1 B); per
-    sample a complex matched filter (4 ops a tap of rrc_taps(2)), the
-    differential phasor and the metric."""
-    return bound(9 * n, n * (4 * 22 + 16), F32_FLOPS)
+def k5_bound(n: int, sps: int = 2) -> dict:
+    """K5 on n samples at sps samples a symbol: planes in (8 B a sample),
+    bits out (2 B a symbol); per sample a complex matched filter (4 ops a
+    tap of rrc_taps(sps), 11·sps taps), the differential phasor and the
+    metric."""
+    return bound(8 * n + 2 * (n // sps), n * (4 * 11 * sps + 16), F32_FLOPS)
 
 
 def rel_err(got, want) -> tuple[float, float]:
@@ -1801,6 +1844,26 @@ def check_steady_small(dev) -> dict:
     return res
 
 
+def fixture_wrong(out: dict, fx: dict, idx, kinds, on=None) -> dict:
+    """Slots of a locked_step result that differ from the steady fixture:
+    kinds, CRC failures and each block's type-1 bits on the slots of its
+    kind. idx [C, S] the fixture slot of each (carrier, slot), kinds
+    [C, S] their kinds (tensors on the result's device); on [C, S] bool
+    restricts the count to those slots."""
+    import torch
+    from tetra_tpu_torch import steady_fixture as sf
+    dev = out["kinds"].device
+    on = torch.ones_like(kinds, dtype=torch.bool) if on is None else on
+    wrong = {"kinds": int(((out["kinds"] != kinds) & on).sum()),
+             "crc_fail": int((~out["crc_ok"] & on).sum())}
+    for key, (rkey, kind) in sf.BLOCKS.items():
+        want = torch.as_tensor(fx[key], device=dev)[idx]
+        ne = (out[rkey].type1 != want).any(-1) & on
+        wrong[key] = int((ne & (kinds == kind)).sum() if kind is not None
+                         else ne.sum())
+    return wrong
+
+
 def run_steady(dev, card: str) -> dict:
     """bench stage 3's shape: 4096 carriers x 64 slots of the clean
     steady fixture through locked_step_ri(fast="pallas") under both
@@ -1844,13 +1907,7 @@ def run_steady(dev, card: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n_launch = launches()
-        wrong = {"kinds": int((out["kinds"] != kinds).sum()),
-                 "crc_fail": int((~out["crc_ok"]).sum())}
-        for key, (rkey, kind) in sf.BLOCKS.items():
-            want = torch.as_tensor(fx[key], device=dev)[idx]
-            ne = (out[rkey].type1 != want).any(-1)
-            wrong[key] = int((ne & (kinds == kind)).sum() if kind is not None
-                             else ne.sum())
+        wrong = fixture_wrong(out, fx, idx, kinds)
         res[name] = {"warm_s": warm, "wall_s": wall,
                      "realtime_carriers": STEADY_CAR * T / 36_000.0 / wall,
                      "crc_ok": int(out["crc_ok"].sum()), "wrong": wrong,
@@ -1864,6 +1921,542 @@ def run_steady(dev, card: str) -> dict:
         del out
         torch.cuda.empty_cache()
     res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res
+
+
+K5_SPS_SYM = 8192        # symbols a carrier in the K5 rate check
+K5_LOCKED_SPS = (1, 4, 8)
+K5_LOCKED_CAR = 512
+
+
+def check_k5_sps(dev) -> dict:
+    """K5 against its plain version at every rate it is built for: 64
+    carriers x K5_SPS_SYM symbols of random bits modulated at sps 1..11
+    (clean), and 7 carriers x 5,003 samples (T no multiple of the tile
+    or of sps). Bits and phase picks identical, metric sums within 1e-5
+    relative; the kernel's time, the plain version's and the bound at
+    the first shape, and the launch shape."""
+    import numpy as np
+    import torch
+    from profile_torch_demod import cuda_ms
+    from tetra_tpu_torch import kernels
+    from tetra_tpu_torch.phy import demod_fused, dqpsk
+    res = {}
+    for sps in demod_fused.SPS_RATES:
+        bits = np.random.default_rng(100 + sps).integers(
+            0, 2, (64, 2 * K5_SPS_SYM)).astype(np.uint8)
+        iq = dqpsk.modulate(bits, sps=sps)
+        re = torch.as_tensor(iq.real.astype(np.float32), device=dev)
+        im = torch.as_tensor(iq.imag.astype(np.float32), device=dev)
+        r = {"carriers": 64, "samples": int(re.shape[1]), "max_abs_err": 0}
+        bad = 0
+        for key, (a, b) in (("", (re, im)),
+                            ("ragged_", (re[:7, :5003].contiguous(),
+                                         im[:7, :5003].contiguous()))):
+            got, best, met = demod_fused.demod_fused(a, b, sps)
+            want, best_p, met_p = demod_fused.demod_fused_plain(a, b, sps)
+            r[f"{key}mismatches"] = int((got != want).sum())
+            r[f"{key}phase_picks_differ"] = int((best != best_p).sum())
+            r[f"{key}metric_max_rel_err"] = float(
+                ((met - met_p).abs() / met_p.abs().clamp(min=1e-30)).max())
+            bad += r[f"{key}mismatches"] + r[f"{key}phase_picks_differ"] \
+                + (r[f"{key}metric_max_rel_err"] > 1e-5)
+            r["max_abs_err"] = max(r["max_abs_err"],
+                                   int((got - want).abs().max()))
+        r["ms"] = cuda_ms(lambda: demod_fused.demod_fused(re, im, sps))
+        r["plain_ms"] = cuda_ms(
+            lambda: demod_fused.demod_fused_plain(re, im, sps), reps=2)
+        r.update(k5_bound(re.numel(), sps))
+        r.update(kernels.occupancy("tt_demod_fused_sps", sps))
+        res[f"sps{sps}"] = r
+        if bad:
+            raise AssertionError(f"K5 at sps {sps} differs from its plain "
+                                 f"version: {r}")
+    return res
+
+
+def run_k5_locked(dev) -> dict:
+    """locked_step_ri(fast="pallas", sps=s, decoders=("fused",)) for s in
+    K5_LOCKED_SPS on K5_LOCKED_CAR carriers of the clean steady fixture
+    modulated at that rate, one warm pass and one pass with the launch
+    counts set to 0 just before it: every output of the first 64
+    carriers (every fixture roll) equal to the CPU's plain chain on
+    them, every later carrier's equal to its roll's (the planes repeat),
+    K5 and K1 launched, and at sps 4 and 8 every kind, crc_ok and
+    payload as the fixture says. At sps 1 the 11-tap RRC pair is not
+    Nyquist at one sample a symbol (the transmit and matched filters
+    alias), so a few slots of the clean capture fail in the JAX chain
+    too (tests/test_torch_k5_rates.py); their count is printed."""
+    import numpy as np
+    import torch
+    from profile_torch_demod import cuda_ms
+    from tetra_tpu_torch import steady_fixture as sf
+    from tetra_tpu_torch.lmac.steady import locked_step_ri
+    from tetra_tpu_torch.phy import demod_fused
+    fx = sf.load()
+    idx = torch.as_tensor(sf.slot_index(K5_LOCKED_CAR), device=dev)
+    kinds = torch.as_tensor(fx["kinds"], device=dev)[idx]
+    inits = np.full(K5_LOCKED_CAR, fx["init"])
+    roll = torch.arange(K5_LOCKED_CAR, device=dev) % sf.N_SLOTS
+    res = {}
+    for sps in K5_LOCKED_SPS:
+        re_np, im_np = sf.capture(K5_LOCKED_CAR, fx=fx, sps=sps)
+        re = torch.as_tensor(re_np, device=dev)
+        im = torch.as_tensor(im_np, device=dev)
+        run = lambda a, b, i: locked_step_ri(
+            a, b, i, phase_bit=sf.PHASE_BIT, n_slots=sf.N_SLOTS,
+            fast="pallas", sps=sps, decoders=("fused",))
+        run(re, im, inits)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = run(re, im, inits)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_launch = launches()
+        head = {k: (type(v)(*(f[:sf.N_SLOTS] for f in v))
+                    if isinstance(v, tuple) else v[:sf.N_SLOTS])
+                for k, v in out.items()}
+        cpu = run(torch.as_tensor(re_np[:sf.N_SLOTS]),
+                  torch.as_tensor(im_np[:sf.N_SLOTS]), inits[:sf.N_SLOTS])
+        rolled = {k: (type(v)(*(f[roll] for f in v))
+                      if isinstance(v, tuple) else v[roll])
+                  for k, v in out.items()}
+        r = {"carriers": K5_LOCKED_CAR, "samples": int(re.shape[1]),
+             "wall_s": wall, "k5_ms": cuda_ms(
+                 lambda: demod_fused.demod_fused(re, im, sps)),
+             "k5_bound": k5_bound(re.numel(), sps),
+             "crc_ok": int(out["crc_ok"].sum()),
+             "fixture_wrong": fixture_wrong(out, fx, idx, kinds),
+             "card_cpu_differs": same_outputs(head, cpu),
+             "rolls_differ": same_outputs(out, rolled),
+             "launches": n_launch}
+        res[f"sps{sps}"] = r
+        if r["card_cpu_differs"] or r["rolls_differ"] \
+                or (sps != 1 and any(r["fixture_wrong"].values())):
+            raise AssertionError(f"k5_sps locked sps {sps}: {r}")
+        if n_launch["demod_fused"] <= 0 or n_launch["viterbi_assembled"] <= 0:
+            raise AssertionError(f"k5_sps locked sps {sps}: K5 or K1 not "
+                                 f"launched: {r}")
+        del re, im, out, head, cpu, rolled
+    return res
+
+
+TX_SOAK = 262_144        # SCH/F blocks of the tx phase's soak
+
+
+def check_tx(dev) -> dict:
+    """The transmitter on the card: the steady fixture's 64 slots
+    rebuilt by the port's tx (steady_fixture.tx_slots) equal the stored
+    ones; the self-test CLI in subprocesses on the card and with
+    --device cpu prints the same lines and exits 0 with 0 CRC errors;
+    TX_SOAK random SCH/F blocks and ACCESS-ASSIGN words from
+    default_rng(17) encoded into bursts on the card (tx.make_schf_bursts)
+    and decoded by decode_schf_burst (K1): every block CRC-OK and equal
+    to its payload, and the card's bursts and decodes equal the CPU's
+    on the first 1,024."""
+    import numpy as np
+    import torch
+    from tetra_tpu_torch import steady_fixture as sf, tx
+    from tetra_tpu_torch.lmac import pipeline
+    from tetra_tpu_torch.ops.scramble import scramb_get_init
+    root = pathlib.Path(__file__).resolve().parent
+    fx = sf.load()
+    t0 = time.perf_counter()
+    slots, kinds, pay, init = sf.tx_slots(device=dev)
+    res = {"steady_slots_equal": bool(
+        np.array_equal(slots, fx["slots"]) and np.array_equal(kinds, fx["kinds"])
+        and init == fx["init"]
+        and all(np.array_equal(fx[k], v) for k, v in pay.items())),
+        "steady_slots_s": time.perf_counter() - t0}
+    outs = {}
+    for name, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "tetra_tpu_torch.selftest",
+                              *extra], cwd=root, capture_output=True,
+                             text=True, timeout=600)
+        outs[name] = (out.returncode, out.stdout, out.stderr,
+                      time.perf_counter() - t0)
+    lines = outs["card"][1].splitlines()
+    res["selftest"] = {
+        "rc": outs["card"][0], "cpu_rc": outs["cpu"][0],
+        "stdout_equal": outs["card"][1] == outs["cpu"][1],
+        "punct_ok_lines": sum(ln.startswith("==> Puncture/Depuncture")
+                              and ln.endswith(": OK") for ln in lines),
+        "last_line": lines[-1] if lines else "",
+        "card_s": outs["card"][3], "cpu_s": outs["cpu"][3]}
+    rng = np.random.default_rng(17)
+    schf = torch.as_tensor(rng.integers(0, 2, (TX_SOAK, 268)).astype(np.int8))
+    aach = torch.as_tensor(rng.integers(0, 2, (TX_SOAK, 14)).astype(np.int8))
+    init = scramb_get_init(262, 42, 1)
+    code = torch.tensor(init, dtype=torch.int64)
+
+    def soak(d, n):
+        b = tx.make_schf_bursts(schf[:n].to(d), aach[:n].to(d), init)
+        return b, pipeline.decode_schf_burst(b, code.to(d))
+
+    soak(dev, 1024)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    bursts, dec = soak(dev, TX_SOAK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_launch = launches()
+    ok = dec["SCH_F"].crc_ok
+    exact = (dec["SCH_F"].type1.cpu() == schf).all(-1) \
+        & (dec["BBK"].type1.cpu() == aach).all(-1)
+    cb, cdec = soak(torch.device("cpu"), 1024)
+    res["soak"] = {
+        "blocks": TX_SOAK, "wall_s": wall, "crc_ok": int(ok.sum()),
+        "payload_exact": int(exact.sum()),
+        "card_equals_cpu_1024": bool(
+            torch.equal(bursts[:1024].cpu(), cb)
+            and all(torch.equal(a[:1024].cpu(), b) for k in cdec
+                    for a, b in zip(dec[k], cdec[k]))),
+        "launches": n_launch}
+    sel = res["selftest"]
+    if not (res["steady_slots_equal"] and sel["rc"] == 0
+            and sel["cpu_rc"] == 0 and sel["stdout_equal"]
+            and sel["punct_ok_lines"] == 9
+            and sel["last_line"] == "total number of CRC Errors: 0"
+            and res["soak"]["crc_ok"] == TX_SOAK
+            and res["soak"]["payload_exact"] == TX_SOAK
+            and res["soak"]["card_equals_cpu_1024"]
+            and n_launch["viterbi_assembled"] > 0):
+        raise AssertionError(f"tx: {res} {outs['card'][2][-2000:]}")
+    return res
+
+
+def eq_differs(a: dict, b: dict) -> dict:
+    """Two fast="eq" results compared: 'all' the keys (or block fields)
+    that differ anywhere (same_outputs); 'decoded' those that differ on
+    the slots either result classifies (kind >= 0), kinds and crc_ok
+    everywhere; 'undecoded_bit_frac' the share of differing bits on the
+    other slots (NDB slots, which the equaliser's n and y pilots do not
+    fit, so its near-tie picks fall either way)."""
+    import torch
+    on = (a["kinds"] >= 0).cpu() | (b["kinds"] >= 0).cpu()
+    bad = []
+    for k in a:
+        for f, x, y in (zip(a[k]._fields, a[k], b[k]) if isinstance(a[k], tuple)
+                        else [("", a[k], b[k])]):
+            x, y = x.cpu(), y.cpu()
+            if k not in ("kinds", "crc_ok"):
+                x = x.reshape(*on.shape, -1)[on]
+                y = y.reshape(*on.shape, -1)[on]
+            if not torch.equal(x, y):
+                bad.append(f"{k}.{f}" if f else k)
+    ba = a["bits"].cpu().reshape(*on.shape, -1)[~on]
+    bb = b["bits"].cpu().reshape(*on.shape, -1)[~on]
+    return {"all": same_outputs(a, b), "decoded": bad,
+            "undecoded_slots": int((~on).sum()),
+            "undecoded_bit_frac": float((ba != bb).float().mean())
+            if ba.numel() else 0.0}
+
+
+def eq_run(re, im, inits, fast="eq"):
+    from tetra_tpu_torch import steady_fixture as sf
+    from tetra_tpu_torch.lmac.steady import locked_step_ri
+    return locked_step_ri(re, im, inits, phase_bit=sf.PHASE_BIT,
+                          n_slots=sf.N_SLOTS, fast=fast, decoders=("fused",))
+
+
+def check_eq_small(dev) -> dict:
+    """The 8-carrier degraded capture (steady_fixture.eq_capture(8): a
+    carrier pair per channel group) through locked_step_ri(fast="eq") on
+    the card and on the CPU: kinds and crc_ok identical everywhere, every
+    output identical on the slots either classifies, and at most 1e-3 of
+    the other slots' bits differing (eq_differs); whether every output
+    is identical is printed."""
+    import numpy as np
+    import torch
+    from tetra_tpu_torch import steady_fixture as sf
+    fx = sf.load()
+    re, im = sf.eq_capture(8, fx=fx)
+    inits = np.full(8, fx["init"])
+    outs = [eq_run(torch.as_tensor(re, device=d), torch.as_tensor(im, device=d),
+                   inits) for d in (dev, torch.device("cpu"))]
+    d = eq_differs(*outs)
+    res = {"carriers": 8, "slots": sf.N_SLOTS,
+           "crc_ok": int(outs[0]["crc_ok"].sum()),
+           "identical": not d["all"], **d}
+    if d["decoded"] or d["undecoded_bit_frac"] > 1e-3 or not res["crc_ok"]:
+        raise AssertionError(f"eq_small: card and CPU differ: {res}")
+    return res
+
+
+def eq_split(re, im, inits, slots_ref) -> dict:
+    """Device time (CUDA events, mean of 3 after a warm-up) of each
+    layer of the equalised chain on the full planes: matched filter and
+    slot cut, CFO estimates, pilot fits, decision-directed passes and the
+    slicer, FEC (the fused decode); the composed stages must give the
+    timed pass's bits."""
+    import torch
+    from profile_torch_demod import cuda_ms
+    from tetra_tpu_torch import steady_fixture as sf
+    from tetra_tpu_torch.lmac.steady import locked_step_bits
+    from tetra_tpu_torch.phy import equalize as eq
+    zr, zi = eq._slot_planes(re, im, sf.N_SLOTS, sf.PHASE_BIT)
+    cfo = eq._cfo(zr, zi)
+    fits = eq._pilot_fits(*cfo)
+    slots = eq._slice(*eq._equalise(*fits))
+    ms = {"matched_filter": cuda_ms(lambda: eq._slot_planes(
+              re, im, sf.N_SLOTS, sf.PHASE_BIT), 3),
+          "cfo": cuda_ms(lambda: eq._cfo(zr, zi), 3),
+          "pilot_fits": cuda_ms(lambda: eq._pilot_fits(*cfo), 3),
+          "dd_passes": cuda_ms(lambda: eq._slice(*eq._equalise(*fits)), 3),
+          "fec": cuda_ms(lambda: locked_step_bits(slots, inits,
+                                                  decoders=("fused",)), 3)}
+    same = torch.equal(slots.reshape(slots.shape[0], -1), slots_ref)
+    del zr, zi, cfo, fits, slots
+    if not same:
+        raise AssertionError("eq split: the stages differ from the pass")
+    return {"ms": ms, "sum_ms": sum(ms.values())}
+
+
+def run_eq(dev, card: str) -> dict:
+    """steady-eq-4096: the degraded capture eq_capture(4096) (each
+    quarter of the carriers through one EQ_GROUPS channel), sps 2, phase
+    bit 64, through locked_step_ri(fast="eq", decoders=("fused",)): a
+    warm pass, then a timed pass with the launch counts set to 0. On the
+    64 recorded carriers the per-slot kinds and crc_ok equal the JAX
+    record (steady_fixture.eq_record) and the CPU's run of those
+    carriers (eq_differs). At full width, per group, the CRC-OK share
+    beside the record's (the record fails every NDB slot, whose p
+    training the equaliser's pilots do not fit; the group passes when
+    its share is at least the record's less three of the record's
+    standard errors), and every CRC-OK slot's kind and payloads equal
+    the fixture. Then fast="pallas" on the same planes, the layer split
+    (eq_split), and fast=False on the clean capture (every slot equal
+    to the fixture)."""
+    import numpy as np
+    import torch
+    from tetra_tpu_torch import steady_fixture as sf
+    fx = sf.load()
+    rec = sf.eq_record()
+    t0 = time.perf_counter()
+    re_np, im_np = sf.eq_capture(rec["n_car"], seed=rec["seed"], fx=fx)
+    build_s = time.perf_counter() - t0
+    n_car, T = re_np.shape
+    re = torch.as_tensor(re_np, device=dev)
+    im = torch.as_tensor(im_np, device=dev)
+    inits = torch.full((n_car,), fx["init"], dtype=torch.int64, device=dev)
+    idx = torch.as_tensor(sf.slot_index(n_car), device=dev)
+    kinds = torch.as_tensor(fx["kinds"], device=dev)[idx]
+    rt = lambda w: n_car * T / 36_000.0 / w
+    groups = torch.as_tensor(sf.eq_group(n_car), device=dev)
+    res = {"carriers": n_car, "slots": sf.N_SLOTS, "samples": T,
+           "capture_build_s": build_s, "card": card}
+    for fast in ("eq", "pallas"):
+        eq_run(re, im, inits, fast)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = eq_run(re, im, inits, fast)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res[fast] = {"wall_s": wall, "realtime_carriers": rt(wall),
+                     "crc_ok": int(out["crc_ok"].sum()),
+                     "crc_ok_by_group": {
+                         name: int(out["crc_ok"][groups == g].sum())
+                         for g, name in enumerate(sf.EQ_GROUPS)},
+                     "launches": launches()}
+        if fast == "eq":
+            eq_out = out
+        del out
+    out = eq_out
+    car = torch.as_tensor(rec["carriers"], device=dev)
+    cpu = eq_run(torch.as_tensor(re_np[rec["carriers"]]),
+                 torch.as_tensor(im_np[rec["carriers"]]),
+                 np.full(len(car), fx["init"]))
+    sub = {k: (type(v)(*(f[car] for f in v)) if isinstance(v, tuple)
+               else v[car]) for k, v in out.items()}
+    d = eq_differs(sub, cpu)
+    res["recorded"] = {
+        "carriers": len(car),
+        "kinds_equal_record": bool(np.array_equal(
+            sub["kinds"].cpu().numpy(), rec["kinds"])),
+        "crc_ok_equal_record": bool(np.array_equal(
+            sub["crc_ok"].cpu().numpy(), rec["crc_ok"])),
+        "card_cpu_identical": not d["all"],
+        "card_cpu_decoded_differs": d["decoded"],
+        "card_cpu_undecoded_bit_frac": d["undecoded_bit_frac"]}
+    del cpu, sub
+    rec_groups = sf.eq_group(rec["n_car"], rec["carriers"])
+    ok = out["crc_ok"]
+    res["groups"] = {}
+    group_pass = True
+    for g, name in enumerate(sf.EQ_GROUPS):
+        on = (groups == g)[:, None].expand_as(ok)
+        share = float(ok[on].float().mean())
+        r_ok = rec["crc_ok"][rec_groups == g]
+        r_share = float(r_ok.mean())
+        se = math.sqrt(r_share * (1 - r_share) / r_ok.size)
+        non_ndb = on & (kinds != 2)
+        res["groups"][name] = {
+            "crc_ok_share": share, "record_share": r_share,
+            "record_slots": int(r_ok.size), "pass_at": r_share - 3 * se,
+            "non_ndb_crc_fail": int((~ok & non_ndb).sum()),
+            "ndb_crc_ok": int((ok & on & (kinds == 2)).sum())}
+        group_pass &= share >= r_share - 3 * se
+    res["decoded_wrong"] = fixture_wrong(out, fx, idx, kinds, on=ok)
+    res["split"] = eq_split(re, im, inits, out["bits"])
+    del out, eq_out, re, im
+    torch.cuda.empty_cache()
+    rc_np, ic_np = sf.capture(n_car, fx=fx)
+    rc = torch.as_tensor(rc_np, device=dev)
+    ic = torch.as_tensor(ic_np, device=dev)
+    del rc_np, ic_np
+    eq_run(rc, ic, inits, False)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = eq_run(rc, ic, inits, False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res["angle"] = {"wall_s": wall, "realtime_carriers": rt(wall),
+                    "crc_ok": int(out["crc_ok"].sum()),
+                    "wrong": fixture_wrong(out, fx, idx, kinds),
+                    "launches": launches()}
+    del out, rc, ic
+    torch.cuda.empty_cache()
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    r = res["recorded"]
+    if not (r["kinds_equal_record"] and r["crc_ok_equal_record"]
+            and not r["card_cpu_decoded_differs"]
+            and r["card_cpu_undecoded_bit_frac"] <= 1e-3 and group_pass
+            and not any(res["decoded_wrong"].values())
+            and not any(res["angle"]["wrong"].values())
+            and res["eq"]["launches"]["viterbi_assembled"] > 0):
+        raise AssertionError(f"eq: {res}")
+    return res
+
+
+WIDE_CHAN = 512                   # bench stage 5: 512 PFB channels
+WIDE_FS = WIDE_CHAN * 25_000.0    # 12.8 MS/s
+WIDE_SIGNAL = (3, 64, 129, 200, 255, 256, 383, 510)   # the signal check's
+WIDE_PHASE_BIT = 64               # slot grid after the PFB (group delay
+                                  # compensated: the 36 kHz input's own)
+
+
+def wide_step(wre, wim, inits, n_slots: int, phase_bit: int = 64):
+    """Bench stage 5's composition: the 512-channel PFB to the demod
+    rate (K2 + K3) feeding locked_step_ri(fast="pallas",
+    decoders=("fused",)) (K5 + K1) on every channel."""
+    from tetra_tpu_torch.lmac.steady import locked_step_ri
+    from tetra_tpu_torch.phy.pfb import pfb_to_demod_rate_ri
+    cr, ci = pfb_to_demod_rate_ri(wre, wim, None, WIDE_CHAN, WIDE_FS)
+    return locked_step_ri(cr, ci, inits, phase_bit=phase_bit,
+                          n_slots=n_slots, fast="pallas", decoders=("fused",))
+
+
+def run_wide512(dev, card: str) -> dict:
+    """wide-512 (bench stage 5): Gaussian noise at the bench's shapes
+    (n_slots 8 and 168, default_rng(1), bench.py:201-210) through
+    wide_step, median of 5 timed runs each: the stage's samples per
+    second as bench.py:213-218 computes them, the launches of one
+    n_slots-168 step (counts set to 0 just before it), the card's kinds
+    and crc_ok at n_slots 8 equal to the CPU plain chain's, and
+    pfb_channelize_ri against K2's rows (transposed) on the n_slots-8
+    input within 1e-4 of the peak. Then the signal check: the steady
+    fixture's carriers on the WIDE_SIGNAL channels, synthesised at
+    12.8 MS/s (synthesize_wideband_fft), through wide_step at n_slots 64
+    and phase bit WIDE_PHASE_BIT: every slot of those channels equals
+    the fixture."""
+    import numpy as np
+    import torch
+    from profile_torch_demod import cuda_ms
+    from tetra_tpu_torch import steady_fixture as sf
+    from tetra_tpu_torch.phy import channelizer as ch, dqpsk
+    from tetra_tpu_torch.phy.pfb import (PfbFrontEnd, pfb_channelize_ri,
+                                         pfb_channelize_rows)
+    fx = sf.load()
+    inits = torch.full((WIDE_CHAN,), fx["init"], dtype=torch.int64,
+                       device=dev)
+    rng = np.random.default_rng(1)
+    res = {"channels": WIDE_CHAN, "fs": WIDE_FS, "card": card}
+    times, planes = {}, {}
+    for n_slots in (8, 168):
+        need = 64 + n_slots * 510 + 64
+        m_chan = int(need * 50_000.0 / 36_000.0) + 80
+        T = (m_chan + 2 * 16) * (WIDE_CHAN // 2)
+        wre = rng.normal(0, 1, T).astype(np.float32)
+        wim = rng.normal(0, 1, T).astype(np.float32)
+        planes[n_slots] = (wre, wim)
+        a = torch.as_tensor(wre, device=dev)
+        b = torch.as_tensor(wim, device=dev)
+        wide_step(a, b, inits, n_slots)
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            if n_slots == 168 and not ts:
+                reset_launches()
+            t0 = time.perf_counter()
+            out = wide_step(a, b, inits, n_slots)
+            int(out["crc_ok"].sum())
+            ts.append(time.perf_counter() - t0)
+            if n_slots == 168 and len(ts) == 1:
+                res["launches"] = launches()
+        times[n_slots] = (float(np.median(ts)), T)
+        if n_slots == 8:
+            cpu = wide_step(torch.as_tensor(wre), torch.as_tensor(wim),
+                            inits.cpu(), n_slots)
+            res["card_equals_cpu_n8"] = bool(
+                torch.equal(out["kinds"].cpu(), cpu["kinds"])
+                and torch.equal(out["crc_ok"].cpu(), cpu["crc_ok"]))
+            res["kinds_classified_n8"] = int((out["kinds"] >= 0).sum())
+            fe = PfbFrontEnd(WIDE_CHAN, WIDE_FS).to(dev)
+            yr, yi = pfb_channelize_rows(a, b, fe.h, fe.twc, fe.tws,
+                                         WIDE_CHAN, fe.J)
+            xr, xi = pfb_channelize_ri(a, b, WIDE_CHAN)
+            d, scale = rel_err((yr.T, yi.T), (xr, xi))
+            res["pfb_ri_vs_k2"] = {
+                "frames": int(yr.shape[0]), "max_abs_err": d,
+                "rel_to_peak": d / scale,
+                "ri_ms": cuda_ms(lambda: pfb_channelize_ri(a, b, WIDE_CHAN),
+                                 3),
+                "k2_ms": cuda_ms(lambda: pfb_channelize_rows(
+                    a, b, fe.h, fe.twc, fe.tws, WIDE_CHAN, fe.J), 3)}
+            del yr, yi, xr, xi, cpu
+        del out, a, b
+    d_wide = times[168][1] - times[8][1]
+    sps_rate = d_wide / (times[168][0] - times[8][0])
+    res.update({"median_s": {str(k): v[0] for k, v in times.items()},
+                "samples": {str(k): v[1] for k, v in times.items()},
+                "samples_per_s": sps_rate,
+                "carriers_realtime": sps_rate / WIDE_FS * WIDE_CHAN})
+    # signal check
+    t0 = time.perf_counter()
+    n_sig = len(WIDE_SIGNAL)
+    base = dqpsk.modulate(sf.carrier_bits(n_sig, fx), sps=2)
+    wide = ch.synthesize_wideband_fft(base, WIDE_SIGNAL, WIDE_CHAN)
+    res["signal_build_s"] = time.perf_counter() - t0
+    a = torch.as_tensor(wide.real.astype(np.float32), device=dev)
+    b = torch.as_tensor(wide.imag.astype(np.float32), device=dev)
+    out = wide_step(a, b, inits, sf.N_SLOTS, WIDE_PHASE_BIT)
+    chans = torch.as_tensor(WIDE_SIGNAL, device=dev)
+    sub = {k: (type(v)(*(f[chans] for f in v)) if isinstance(v, tuple)
+               else v[chans]) for k, v in out.items()}
+    idx = torch.as_tensor(sf.slot_index(n_sig), device=dev)
+    kinds = torch.as_tensor(fx["kinds"], device=dev)[idx]
+    others = torch.ones(WIDE_CHAN, dtype=torch.bool, device=dev)
+    others[chans] = False
+    res["signal"] = {"channels": list(WIDE_SIGNAL),
+                     "phase_bit": WIDE_PHASE_BIT,
+                     "wideband_samples": int(a.shape[0]),
+                     "crc_ok": int(sub["crc_ok"].sum()),
+                     "wrong": fixture_wrong(sub, fx, idx, kinds),
+                     "crc_ok_other_channels":
+                         int(out["crc_ok"][others].sum())}
+    del out, sub, a, b
+    if not (res["card_equals_cpu_n8"]
+            and res["pfb_ri_vs_k2"]["rel_to_peak"] <= TOL
+            and not any(res["signal"]["wrong"].values())
+            and all(res["launches"][k] > 0 for k in (
+                "pfb_wola", "resample_rows", "demod_fused",
+                "viterbi_assembled"))):
+        raise AssertionError(f"wide512: {res}")
     return res
 
 
@@ -1995,15 +2588,51 @@ def main() -> int:
         steady = run_steady(dev, card)
         emit({"phase": "steady", **steady})
         d_launch = steady["fused"]["launches"]
+
+        k5r = check_k5_sps(dev)
+        emit({"phase": "kernels", "kernel": "K5 (every rate)", **k5r})
+        k5l = run_k5_locked(dev)
+        emit({"phase": "k5_sps", **k5l})
+        tx_res = check_tx(dev)
+        emit({"phase": "tx", **tx_res})
+        emit({"phase": "eq_small", **check_eq_small(dev)})
+        eq = run_eq(dev, card)
+        emit({"phase": "eq", **eq})
+        wide = run_wide512(dev, card)
+        emit({"phase": "wide512", **wide})
         # launch shape at the main path's calls: fused K1 (K 512, three
         # maps, n288) and the soft path's K4 (N 4, n288)
         k1_occ = kernels.occupancy("tt_viterbi_assembled", 512, 3, 288)
         k4_occ = kernels.occupancy("tt_viterbi_segmented", 4, 288)
         k2_occ = kernels.occupancy("tt_pfb_wola", N_CAR)
-        k5_occ = kernels.occupancy("tt_demod_fused")
+        k5_occ = kernels.occupancy("tt_demod_fused_sps", 2)
         k6_occ = kernels.occupancy("tt_viterbi_decode", 3, 112)
         emit({"phase": "occupancy", "K1": k1_occ, "K4": k4_occ,
-              "K2": k2_occ, "K5": k5_occ, "K6": k6_occ})
+              "K2": k2_occ, "K5": k5_occ, "K6": k6_occ,
+              "K5_rates": {k: {f: v[f] for f in ("blocks_per_sm",
+                                                 "regs_per_thread",
+                                                 "smem_per_block")}
+                           for k, v in k5r.items()}})
+        # K5 at each rate: launches on the path that runs that rate (the
+        # steady chain at sps 2, k5_sps's locked chains at 1, 4 and 8; no
+        # path runs the other rates)
+        rate_launch = {2: d_launch["demod_fused"],
+                       **{s_: k5l[f"sps{s_}"]["launches"]["demod_fused"]
+                          for s_ in K5_LOCKED_SPS}}
+        k5_rates = [
+            {"name": f"demod_fused (sps {s_})", "route": "cuda",
+             "source": "tetra_tpu_torch/csrc/demod_fused.cu",
+             "replaces": "tetra_tpu/phy/demod_pallas.py:165",
+             "launches": rate_launch.get(s_, 0),
+             "path": ("steady" if s_ == 2 else "k5_sps locked_step_ri"
+                      if s_ in K5_LOCKED_SPS else None),
+             "carriers": r["carriers"], "samples": r["samples"],
+             "max_abs_err": float(r["max_abs_err"]), "ms": r["ms"],
+             "plain_ms": r["plain_ms"],
+             **{k: r[k] for k in ("bound_ms", "bound_by", "bound_bytes",
+                                  "bound_ops", "bound_peak")},
+             "library_ms": None}
+            for s_, r in ((int(k[3:]), v) for k, v in k5r.items())]
         k6_main = f"n112_{max(k6['voice_rows'])}"
 
         emit({"kernels": [
@@ -2023,6 +2652,10 @@ def main() -> int:
              "ms_n144": k1["ms_n144"],
              "plain_ms_n144": k1["plain_ms_n144"],
              "steady_launches": d_launch["viterbi_assembled"],
+             "eq_launches": eq["eq"]["launches"]["viterbi_assembled"],
+             "angle_launches": eq["angle"]["launches"]["viterbi_assembled"],
+             "wide512_launches": wide["launches"]["viterbi_assembled"],
+             "tx_launches": tx_res["soak"]["launches"]["viterbi_assembled"],
              **{f"steady_{k}": k1s[k] for k in k1s
                 if k.startswith(("ms_", "plain_ms_"))},
              **k1["bound_n288"], "library_ms": None, **k1_occ},
@@ -2031,6 +2664,7 @@ def main() -> int:
              "replaces": "tetra_tpu/phy/pfb_pallas.py:212",
              "launches": n_launch["pfb_wola"],
              "python_plane_launches": p_launch["pfb_wola"],
+             "wide512_launches": wide["launches"]["pfb_wola"],
              "max_abs_err": k23["k2_max_abs_err"],
              "ms": k23["k2_ms"], "plain_ms": k23["k2_plain_ms"],
              "dft_only_ms": k23["k2_dft_only_ms"],
@@ -2040,6 +2674,7 @@ def main() -> int:
              "replaces": "tetra_tpu/phy/pfb_pallas.py:337",
              "launches": n_launch["resample_rows"],
              "python_plane_launches": p_launch["resample_rows"],
+             "wide512_launches": wide["launches"]["resample_rows"],
              "max_abs_err": k23["k3_max_abs_err"],
              "ms": k23["k3_ms"], "plain_ms": k23["k3_plain_ms"],
              "share_of_bound": k23["k3_bound"]["bound_ms"] / k23["k3_ms"],
@@ -2066,6 +2701,7 @@ def main() -> int:
              "source": "tetra_tpu_torch/csrc/demod_fused.cu",
              "replaces": "tetra_tpu/phy/demod_pallas.py:165",
              "launches": d_launch["demod_fused"],
+             "wide512_launches": wide["launches"]["demod_fused"],
              "max_abs_err": float(k5["max_abs_err"]),
              "ms": k5["ms"], "plain_ms": k5["plain_ms"],
              **k5["bound"], "library_ms": None, **k5_occ},
@@ -2077,7 +2713,7 @@ def main() -> int:
              "max_abs_err": float(k7["max_abs_err"]),
              "ms": k7["ms"]["4096"]["kernel"],
              "plain_ms": k7["ms"]["4096"]["plain"],
-             **k5["bound"], "library_ms": None}]})
+             **k5["bound"], "library_ms": None}, *k5_rates]})
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),

@@ -93,8 +93,9 @@ def test_import_is_jax_free(tmp_path):
     """A fresh interpreter imports every module of the port, runs a
     2-carrier wideband slice with traffic dumps, voice decode, GSMTAP
     and a TL-SDU sink, the mixer bank on the 2-cell off-grid capture,
-    the carrier scan and the receiver CLI on a bits file, and never
-    loads jax nor any tetra_tpu module."""
+    the carrier scan, the receiver CLI on a bits file, the self-test,
+    the transmitter and the equaliser, and never loads jax nor any
+    tetra_tpu module."""
     code = """
 import importlib, pkgutil, sys
 import numpy as np
@@ -129,6 +130,19 @@ assert sum(r["confirmed"] for r in res) == 2, res
 cap = pathlib.Path(sys.argv[1]) / "cap.bits"
 prod_fixture.rx_small_bits().tofile(cap)
 receiver.main(["--file", str(cap), "--device", "cpu"], log=lambda *a: None)
+import torch
+from tetra_tpu_torch import selftest, steady_fixture as sf, tx
+from tetra_tpu_torch.phy import equalize
+import contextlib, io
+with contextlib.redirect_stdout(io.StringIO()):
+    assert selftest.punct_test("cpu") == 0
+assert selftest.loopback_soak(8, device="cpu") == 0
+assert tx.make_schf_bursts(np.zeros((2, 268), np.int8),
+                           np.zeros((2, 14), np.int8), 3, "cpu").shape == (2, 510)
+re, im = sf.eq_capture(8, [0, 2])
+slots = equalize.demodulate_hard_eq_slotwise_ri(
+    torch.as_tensor(re), torch.as_tensor(im), 64, phase_bit=64)
+assert slots.shape == (2, 64, 510)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "tetra_tpu"))
 assert not bad, bad
@@ -169,8 +183,11 @@ def _imports_of_jax_package(path: pathlib.Path) -> list:
 
 def test_port_sources_import_nothing_of_jax_package():
     """No module of the port, nor chip_smoke.py, nor the port's profiling
-    and bench tools imports tetra_tpu (as opposed to tetra_tpu_torch)."""
+    and bench tools imports tetra_tpu (as opposed to tetra_tpu_torch);
+    the transmitter, self-test and equaliser modules are among them."""
     files = sorted((ROOT / "tetra_tpu_torch").rglob("*.py"))
+    for mod in ("tx", "selftest", "testpdu", "phy/equalize"):
+        assert ROOT / "tetra_tpu_torch" / f"{mod}.py" in files, mod
     files += [ROOT / "chip_smoke.py", ROOT / "tools" / "rtl_tcp_mock.py",
               *sorted((ROOT / "tools").glob("profile_torch_*.py")),
               *sorted((ROOT / "tools").glob("bench_torch_*.py"))]

@@ -1,7 +1,9 @@
 """Steady locked-step chain of the PyTorch port vs tetra_tpu on the CPU:
 locked_step_bits, locked_step_ri for every ported `fast` mode on clean,
 8 dB and CFO-ramp captures of the steady fixture, locked_step_iq, the
-unported modes, the jax-free run and the fixture itself.
+modes ported last (fast="eq" and False; tests/test_torch_equalize.py
+holds them on degraded captures), the jax-free run and the fixture
+itself.
 
 Kinds, crc_ok, every block and the bits are compared exactly. The soft
 values of demodulate_soft_slotwise_ri are held to |d| <= 1e-5 (values
@@ -121,10 +123,23 @@ def test_locked_step_iq():
 
 @pytest.mark.parametrize("fast", ["eq", False])
 def test_unported_fast_modes_raise(fast):
+    """The two modes that raised NotImplementedError until they were
+    ported now run and equal the JAX chain on the clean capture; what
+    stays refused raises ValueError: the equaliser at sps 4 (the JAX
+    package asserts sps 2) and an unknown mode."""
     re, im = steady_fixture.capture(1)
-    with pytest.raises(NotImplementedError):
-        steady.locked_step_ri(t(re), t(im), t(np.asarray([INIT])),
-                              phase_bit=64, n_slots=64, fast=fast)
+    inits = np.asarray([INIT], np.uint32)
+    got = steady.locked_step_ri(t(re), t(im), t(inits), phase_bit=64,
+                                n_slots=64, fast=fast, decoders=("fused",))
+    want = j_steady.locked_step_ri(jnp.asarray(re), jnp.asarray(im),
+                                   jnp.asarray(inits), phase_bit=64,
+                                   n_slots=64, fast=fast,
+                                   decoders=("fused",))
+    _same(got, want)
+    with pytest.raises(ValueError):
+        steady.locked_step_ri(t(re), t(im), t(inits), phase_bit=64,
+                              n_slots=32, fast=fast if fast else "angle",
+                              sps=4)
 
 
 def test_slice_runs_without_jax():

@@ -230,7 +230,8 @@ def test_fixture_chain_numpy_copies():
 _COPIES = ["constants", "tdma", "umac/native_exec", "crypto/crypto",
            "crypto/tea", "crypto/taa1", "crypto/hurdle", "crypto/native",
            "io/gsmtap", "io/tun", "umac/mac_pdu", "llc/llc_pdu", "llc/llc",
-           "mle/mle", "umac/upper_mac", "io/sdr", "io/udp", "io/audio"]
+           "mle/mle", "umac/upper_mac", "io/sdr", "io/udp", "io/audio",
+           "testpdu"]
 
 
 def _code(path: pathlib.Path) -> str:

@@ -32,7 +32,8 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# exported launcher name -> ctypes argtypes (all return int = cudaError_t)
+# exported launcher name -> ctypes argtypes (all return int = cudaError_t,
+# except those in _RESTYPES)
 _SIGNATURES = {
     "tt_viterbi_assembled": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P,
                              _P, _I, _P, _P, _I, _I, _P],
@@ -49,9 +50,13 @@ _SIGNATURES = {
                          _P],
     "tt_demod_fused": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I,
                        _P],
-    "tt_demod_fused_occupancy": [_P],
+    "tt_demod_fused_sps_occupancy": [_I, _P],
+    "tt_demod_fused_scratch": [_I, _I],
     "tt_error_string": [_I],
 }
+
+_RESTYPES = {"tt_error_string": ctypes.c_char_p,
+             "tt_demod_fused_scratch": ctypes.c_longlong}
 
 _lock = threading.Lock()
 _lib = None
@@ -111,8 +116,7 @@ def lib():
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(so, name)
                 fn.argtypes = argtypes
-                fn.restype = (ctypes.c_char_p if name == "tt_error_string"
-                              else ctypes.c_int)
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _lib = so
         return _lib
 
@@ -130,7 +134,8 @@ def stream_ptr(device: torch.device) -> int:
 
 
 def occupancy(name: str, *args: int) -> dict:
-    """Launch shape of a kernel (K1, K2, K4, K5, K6) at the given
+    """Launch shape of a kernel (K1, K2, K4, K5, K6; K5 at any rate as
+    "tt_demod_fused_sps" with the rate as argument) at the given
     arguments: the exported `<name>_occupancy` fills resident blocks per
     SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers per
     thread and shared bytes per block (cudaFuncGetAttributes plus the

@@ -10,7 +10,9 @@ package's steady benchmark stages.
 
 fast="pallas" runs the demod through kernel K5 (phy.demod_fused,
 CUDA) and the FEC through kernel K1, the fused decode
-(decoders=("fused",)) or the per-kind burst decoders.
+(decoders=("fused",)) or the per-kind burst decoders. fast="eq" puts
+the per-slot pilot-aided equaliser (phy.equalize, plain PyTorch) in
+front of the same FEC; fast=False is the angle demod and slicer.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 from tetra_tpu_torch import constants as C
 from tetra_tpu_torch.device import resolve_device
 from tetra_tpu_torch.lmac import fused as fused_mod, pipeline
-from tetra_tpu_torch.phy import demod_fused, dqpsk
+from tetra_tpu_torch.phy import demod_fused, dqpsk, equalize
 
 __all__ = ["verify_train_seq", "classify_train_seq", "locked_step_bits",
            "locked_step_iq", "locked_step_fused", "locked_step_ri",
@@ -157,16 +159,14 @@ def locked_step_ri(re: torch.Tensor, im: torch.Tensor, inits,
     per-symbol decisions when phase_bit is even; fast="slotwise": per-slot
     timing re-pick and blind residual-CFO correction for degraded
     signals; fast="soft": the slotwise soft values through the fused
-    decode with kernel K4 and nearest-template classification.
-    fast="eq" (pilot-aided equaliser) and fast=False (angle + slicer)
-    are not ported and raise NotImplementedError."""
-    if fast is False or fast == "eq":
-        raise NotImplementedError(f"locked_step_ri(fast={fast!r}) is not "
-                                  "ported")
-    if fast not in (True, "pallas", "slotwise", "soft"):
+    decode with kernel K4 and nearest-template classification;
+    fast="eq": the per-slot pilot-aided T/2 equaliser for multipath
+    channels (sps 2), then the hard FEC; fast=False: the angle demod
+    (dqpsk.demodulate_ri) and the reference slicer (float_to_bits)."""
+    if fast not in (True, False, "pallas", "slotwise", "soft", "eq"):
         raise ValueError(f"unknown fast={fast!r}")
     inits = torch.as_tensor(inits, dtype=torch.int64, device=re.device)
-    if fast in ("slotwise", "soft"):
+    if fast in ("slotwise", "soft", "eq"):
         S = n_slots if n_slots is not None else \
             (re.shape[-1] * 2 // sps - phase_bit) // C.BITS_PER_TS
         if fast == "soft":
@@ -179,9 +179,9 @@ def locked_step_ri(re: torch.Tensor, im: torch.Tensor, inits,
                                                soft_input=True)
             out["bits"] = hard.reshape(hard.shape[0], S * C.BITS_PER_TS)
             return out
-        slots = dqpsk.demodulate_hard_slotwise_ri(re, im, S,
-                                                  phase_bit=phase_bit,
-                                                  sps=sps)
+        demod = (equalize.demodulate_hard_eq_slotwise_ri if fast == "eq"
+                 else dqpsk.demodulate_hard_slotwise_ri)
+        slots = demod(re, im, S, phase_bit=phase_bit, sps=sps)
         out = locked_step_bits(slots, inits, decoders=decoders)
         out["bits"] = slots.reshape(slots.shape[0], S * C.BITS_PER_TS)
         return out
@@ -196,8 +196,10 @@ def locked_step_ri(re: torch.Tensor, im: torch.Tensor, inits,
         return out
     if fast == "pallas":
         bits = demod_fused.demodulate_hard_ri_pallas(re, im, sps=sps)
-    else:
+    elif fast:
         bits = dqpsk.demodulate_hard_ri(re, im, sps=sps)
+    else:
+        bits = dqpsk.float_to_bits(dqpsk.demodulate_ri(re, im, sps=sps))
     bits = bits[..., phase_bit:]
     S = n_slots if n_slots is not None else bits.shape[-1] // C.BITS_PER_TS
     slots = bits[..., :S * C.BITS_PER_TS].reshape(

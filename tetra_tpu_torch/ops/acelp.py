@@ -1,5 +1,5 @@
-"""ACELP speech-frame bit reordering and the TCH/S receive FEC chain
-(port of the decode side of tetra_tpu.ops.acelp), EN 300 395-2.
+"""ACELP speech-frame bit reordering and the TCH/S FEC chain (port of
+tetra_tpu.ops.acelp), EN 300 395-2.
 
 Reference behaviour: src/lower_mac/tch_reordering.c (class-0/1/2 bit
 position tables, Table 4). The reference's class-0 table declares 51
@@ -9,9 +9,8 @@ the JAX package.
 `tch_s_decode` depunctures the two protected classes of a 432-bit
 type-3 frame into soft mother sequences (+-127, erasures 0) and decodes
 each with the rate-1/3 speech code through viterbi.decode_tch: the plain
-scan for CPU tensors, kernel K6 for CUDA tensors. The encode side
-(tch_s_encode, codec_to_type2) needs rcpc.conv_encode, which is TX work
-and not ported yet.
+scan for CPU tensors, kernel K6 for CUDA tensors. `tch_s_encode` and
+`codec_to_type2` are the transmit side.
 """
 from __future__ import annotations
 
@@ -23,7 +22,8 @@ import torch
 from tetra_tpu_torch import constants as C
 from tetra_tpu_torch.ops import rcpc, viterbi
 
-__all__ = ["type2_to_codec", "tch_s_decode"]
+__all__ = ["type2_to_codec", "codec_to_type2", "tch_s_decode",
+           "tch_s_encode"]
 
 _NUM_C0 = 51   # reference NUM_ACELP_CLASS0_BITS (incl. the phantom entry)
 _NUM_C1 = 56
@@ -70,6 +70,44 @@ def type2_to_codec(bits: torch.Tensor) -> torch.Tensor:
     slot) are zero."""
     src, mask = _maps_on(bits.device)
     return bits[..., src] * mask.to(bits.dtype)
+
+
+@functools.lru_cache(maxsize=4)
+def _inverse_on(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(gather index, mask) of the inverse of _maps on `device`."""
+    fwd = _maps()
+    inv = np.full(2 * _FRAME_BITS, -1, dtype=np.int32)
+    for codec_idx, in_idx in enumerate(fwd):
+        if in_idx >= 0:
+            inv[in_idx] = codec_idx
+    src = torch.as_tensor(np.where(inv < 0, 0, inv), dtype=torch.int64,
+                          device=device)
+    mask = torch.as_tensor((inv >= 0).astype(np.int8), device=device)
+    return src, mask
+
+
+def codec_to_type2(bits: torch.Tensor) -> torch.Tensor:
+    """Inverse reordering: [..., 274] codec bits -> [..., 274] line bits
+    (the phantom pair's positions zero)."""
+    src, mask = _inverse_on(bits.device)
+    return bits[..., src] * mask.to(bits.dtype)
+
+
+def tch_s_encode(class0: torch.Tensor, class1: torch.Tensor,
+                 class2: torch.Tensor) -> torch.Tensor:
+    """Speech classes -> 432-bit type-3 frames int8 (batched):
+    [class0 (102) | punct(class1 + 4 tail, 112/168) | punct(class2 + 8
+    zero bits, 72/162)] with the rate-1/3 speech code
+    (tetra_conv_enc.c:253-263)."""
+    def t2(x, n):
+        return torch.cat([x.to(torch.int8), torch.zeros(
+            x.shape[:-1] + (n,), dtype=torch.int8, device=x.device)], dim=-1)
+
+    m1 = rcpc.conv_encode(t2(class1, 4), C.CONV_GENERATORS_TCH)
+    m2 = rcpc.conv_encode(t2(class2, 8), C.CONV_GENERATORS_TCH)
+    return torch.cat([class0.to(torch.int8),
+                      rcpc.puncture("112_168", m1, _C1_T3),
+                      rcpc.puncture("72_162", m2, _C2_T3)], dim=-1)
 
 
 def tch_s_decode(type3: torch.Tensor):

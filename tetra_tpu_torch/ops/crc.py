@@ -5,7 +5,8 @@ Reference behaviour: src/lower_mac/crc_simple.c:46-106 (init 0xFFFF,
 poly 0x1021, MSB first over unpacked bits; check constant 0x1D0F) and
 src/tetra_llc_pdu.c:105-126 (FCS-32). The host versions
 (`crc16_bits_np`, `fcs32_np`) back crypto.native's fallbacks and the
-receiver's CRC log lines.
+receiver's CRC log lines; the batched ones (`crc16_bits`, `crc16_value`,
+`fcs32`) serve the transmitter.
 
 The CRC of a fixed-length bit vector is affine over GF(2):
 crc(x) = x @ M xor C. The host builds (M, C) once per length; the batch
@@ -20,9 +21,11 @@ import torch
 
 from tetra_tpu_torch.constants import (CRC16_POLY, CRC16_INIT, FCS32_POLY,
                                        TETRA_CRC_OK)
+from tetra_tpu_torch.utils.bits import gf2_matmul
 
-__all__ = ["crc16_matrix", "crc16_check", "crc16_tables", "crc16_bits_np",
-           "fcs32_np", "TETRA_CRC_OK"]
+__all__ = ["crc16_matrix", "crc16_bits", "crc16_value", "crc16_check",
+           "crc16_tables", "crc16_bits_np", "fcs32_np", "fcs32_matrix",
+           "fcs32", "TETRA_CRC_OK"]
 
 
 def crc16_bits_np(bits) -> int:
@@ -77,15 +80,37 @@ def crc16_matrix(length: int) -> tuple[np.ndarray, np.ndarray]:
     return M, C
 
 
+@functools.lru_cache(maxsize=64)
+def _affine_on(name: str, length: int, device: torch.device):
+    """(M float32 [length, n], C int8 [n]) of crc16_matrix or
+    fcs32_matrix on `device`, copied there once."""
+    M, Cc = {"crc16": crc16_matrix, "fcs32": fcs32_matrix}[name](length)
+    return (torch.as_tensor(M, dtype=torch.float32, device=device),
+            torch.as_tensor(Cc.astype(np.int8), device=device))
+
+
+def _affine_bits(name: str, bits: torch.Tensor) -> torch.Tensor:
+    """bits [..., L] @ M xor C over GF(2) -> int8 [..., n]."""
+    M, Cc = _affine_on(name, bits.shape[-1], bits.device)
+    return gf2_matmul(bits, M) ^ Cc
+
+
+def crc16_bits(bits: torch.Tensor) -> torch.Tensor:
+    """Batched CRC16 over ubits [..., L] -> crc bits [..., 16] int8 (MSB
+    first)."""
+    return _affine_bits("crc16", bits)
+
+
+def crc16_value(bits: torch.Tensor) -> torch.Tensor:
+    """Batched CRC16 -> int64 value [...]."""
+    w = 1 << torch.arange(15, -1, -1, device=bits.device)
+    return (crc16_bits(bits).to(torch.int64) * w).sum(-1)
+
+
 def crc16_check(bits: torch.Tensor) -> torch.Tensor:
     """True where crc16(bits) == TETRA_CRC_OK (reference
     tetra_lower_mac.c:259); bits [..., L] of 0/1."""
-    M, C = crc16_matrix(bits.shape[-1])
-    Mt = torch.as_tensor(M, dtype=torch.float32, device=bits.device)
-    crc = (bits.to(torch.float32) @ Mt).to(torch.int64) & 1
-    crc = crc ^ torch.as_tensor(C.astype(np.int64), device=bits.device)
-    w = 1 << torch.arange(15, -1, -1, device=bits.device)
-    return (crc * w).sum(-1) == TETRA_CRC_OK
+    return crc16_value(bits) == TETRA_CRC_OK
 
 
 @functools.lru_cache(maxsize=8)
@@ -104,3 +129,36 @@ def crc16_tables(n_sym: int, crc_segs: tuple) -> tuple[np.ndarray, np.ndarray]:
         words[s, off:off + ln] = (M.astype(np.int64) * w).sum(-1)
         target[s] = int((C.astype(np.int64) * w).sum()) ^ TETRA_CRC_OK
     return words, target
+
+
+@functools.lru_cache(maxsize=32)
+def fcs32_matrix(length: int) -> tuple[np.ndarray, np.ndarray]:
+    """(M[length,32], C[32]) with fcs_bits = bits @ M xor C, MSB-first
+    (the register of fcs32_np, final complement in C)."""
+    masks = [0] * 32
+    init = 0xFFFFFFFF
+    if length < 32:
+        init = (init << (32 - length)) & 0xFFFFFFFF
+    consts = [(init >> (31 - r)) & 1 for r in range(32)]
+    for i in range(length):
+        top_m = masks[0] ^ (1 << i)   # bit = x_i xor crc_msb
+        top_c = consts[0]
+        masks = masks[1:] + [0]
+        consts = consts[1:] + [0]
+        for r in range(32):
+            if (FCS32_POLY >> (31 - r)) & 1:
+                masks[r] ^= top_m
+                consts[r] ^= top_c
+    consts = [c ^ 1 for c in consts]
+    M = np.zeros((length, 32), dtype=np.uint8)
+    for r in range(32):
+        for i in range(length):
+            if (masks[r] >> i) & 1:
+                M[i, r] = 1
+    return M, np.asarray(consts, dtype=np.uint8)
+
+
+def fcs32(bits: torch.Tensor) -> torch.Tensor:
+    """Batched FCS-32 over ubits [..., L] -> fcs bits [..., 32] int8
+    (MSB first)."""
+    return _affine_bits("fcs32", bits)

@@ -1,8 +1,10 @@
-"""RCPC puncturing index maps and the soft depuncture (port of
-tetra_tpu.ops.rcpc).
+"""RCPC coding (port of tetra_tpu.ops.rcpc): the mother encoder, the
+puncturing index maps, puncture and the soft and hard depuncture.
 
-Reference behaviour: src/lower_mac/tetra_conv_enc.c:196-248. The encode
-side (conv_encode, puncture) is TX work and is not ported yet.
+Reference behaviour: src/lower_mac/tetra_conv_enc.c — a rate-1/4
+(data) or rate-1/3 (speech) K=5 mother code plus 7 puncturing schemes
+(:196-248). The encoder is feed-forward from the all-zero state, so a
+whole batch of blocks encodes as a few XORs of delayed copies.
 """
 from __future__ import annotations
 
@@ -10,10 +12,29 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from tetra_tpu_torch.constants import PUNCT_SCHEMES
+from tetra_tpu_torch.constants import PUNCT_SCHEMES, CONV_GENERATORS_CCH
 
-__all__ = ["puncture_indices", "depuncture_soft"]
+__all__ = ["conv_encode", "puncture_indices", "puncture", "depuncture_soft",
+           "depuncture_hard"]
+
+
+def conv_encode(bits: torch.Tensor,
+                generators=CONV_GENERATORS_CCH) -> torch.Tensor:
+    """Mother-code encode ubits [..., L] -> int8 [..., L*N], output order
+    G1..GN per step (tetra_conv_enc.c:43-74): generator output = the
+    input XOR its copies delayed by each tap, zero before the block (the
+    encoder's all-zero start state)."""
+    bits = bits.to(torch.int8)
+    outs = []
+    for taps in generators:
+        g = bits
+        for d in taps:
+            g = g ^ F.pad(bits, (d, 0))[..., :bits.shape[-1]]
+        outs.append(g)
+    return torch.stack(outs, dim=-1).reshape(
+        *bits.shape[:-1], bits.shape[-1] * len(generators))
 
 
 @functools.lru_cache(maxsize=32)
@@ -47,6 +68,13 @@ def _indices_on(scheme: str, type3_len: int,
                            dtype=torch.int64, device=device)
 
 
+def puncture(scheme: str, mother: torch.Tensor,
+             type3_len: int) -> torch.Tensor:
+    """Select the type-3 bits of the mother sequence [..., L*N] ->
+    [..., type3_len]."""
+    return mother[..., _indices_on(scheme, type3_len, mother.device)]
+
+
 def depuncture_soft(scheme: str, soft_type3: torch.Tensor,
                     mother_len: int) -> torch.Tensor:
     """Scatter soft type-3 values [..., type3_len] into a zero (erasure)
@@ -58,4 +86,16 @@ def depuncture_soft(scheme: str, soft_type3: torch.Tensor,
     out = torch.zeros(soft_type3.shape[:-1] + (mother_len,),
                       dtype=soft_type3.dtype, device=soft_type3.device)
     out[..., idx] = soft_type3
+    return out
+
+
+def depuncture_hard(scheme: str, type3: torch.Tensor, mother_len: int,
+                    erasure: int = 255) -> torch.Tensor:
+    """Hard-bit depuncture: type-3 bits [..., type3_len] into an int32
+    mother sequence [..., mother_len] holding `erasure` at the punctured
+    positions (the reference's 0xff markers)."""
+    idx = _indices_on(scheme, type3.shape[-1], type3.device)
+    out = torch.full(type3.shape[:-1] + (mother_len,), erasure,
+                     dtype=torch.int32, device=type3.device)
+    out[..., idx] = type3.to(torch.int32)
     return out

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from tetra_tpu_torch.constants import RM3014_GEN
+from tetra_tpu_torch.utils.bits import gf2_matmul
 
 __all__ = ["generator_matrix", "encode", "decode", "encode_uint"]
 
@@ -47,14 +48,9 @@ def _syndrome_table() -> np.ndarray:
     return table
 
 
-def _gf2_matmul(bits: torch.Tensor, matrix: np.ndarray) -> torch.Tensor:
-    m = torch.as_tensor(matrix, dtype=torch.float32, device=bits.device)
-    return ((bits.to(torch.float32) @ m).to(torch.int64) & 1).to(torch.int8)
-
-
 def encode(bits14: torch.Tensor) -> torch.Tensor:
     """ubits [..., 14] -> codeword ubits [..., 30] int8."""
-    return _gf2_matmul(bits14, generator_matrix())
+    return gf2_matmul(bits14, generator_matrix())
 
 
 def encode_uint(value: int) -> int:
@@ -71,7 +67,7 @@ def decode(bits30: torch.Tensor, correct: bool = False):
     [...] bool). correct=False is the reference's truncation
     (tetra_rm3014.c:92-96) plus an error-detection flag; correct=True
     fixes single-bit errors first."""
-    syn_bits = _gf2_matmul(bits30, _parity_check())
+    syn_bits = gf2_matmul(bits30, _parity_check())
     ok = (syn_bits == 0).all(dim=-1)
     if correct:
         w = 1 << torch.arange(15, -1, -1, device=bits30.device)

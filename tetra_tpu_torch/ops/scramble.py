@@ -17,9 +17,10 @@ import numpy as np
 import torch
 
 from tetra_tpu_torch.constants import SCRAMB_INIT, SCRAMB_TAPS
+from tetra_tpu_torch.utils.bits import gf2_matmul
 
 __all__ = ["keystream_matrix", "keystream_np", "keystream", "scramb_bits",
-           "scramb_get_init"]
+           "scramb_get_init", "init_to_bits"]
 
 
 def scramb_get_init(mcc: int, mnc: int, colour: int) -> int:
@@ -61,12 +62,17 @@ def _matrix_on(n: int, device: torch.device) -> torch.Tensor:
                            device=device)
 
 
+def init_to_bits(init) -> torch.Tensor:
+    """Scrambling codes (int64 [...] holding uint32 values, or an int)
+    -> LSB-first 32-bit ubits [..., 32] int8."""
+    init = torch.as_tensor(init, dtype=torch.int64)
+    sh = torch.arange(32, device=init.device)
+    return ((init[..., None] >> sh) & 1).to(torch.int8)
+
+
 def keystream(init: torch.Tensor, n: int) -> torch.Tensor:
     """Keystream [..., n] int8 for int64 scrambling codes init [...]."""
-    m = _matrix_on(n, init.device)
-    sh = torch.arange(32, device=init.device)
-    bits = ((init.to(torch.int64)[..., None] >> sh) & 1).to(torch.float32)
-    return ((bits @ m).to(torch.int64) & 1).to(torch.int8)
+    return gf2_matmul(init_to_bits(init), _matrix_on(n, init.device))
 
 
 def scramb_bits(init: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:

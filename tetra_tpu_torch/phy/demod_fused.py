@@ -10,6 +10,8 @@ kernel. Slots are a view of the bits.
 
 `demod_fused` runs the plain version (`demod_fused_plain`) for CPU
 tensors and launches the kernel for CUDA tensors, raising if it cannot.
+Both take every rate sps = 1..11 (the TPU kernel's: an 11·sps-tap
+filter within its 128-lane halo) and raise ValueError for any other.
 
 Metric range: the sums run over samples t < (T // sps) * sps, the
 range of the XLA demod and the plain version. The TPU kernel also
@@ -24,11 +26,10 @@ from tetra_tpu_torch import constants as C
 from tetra_tpu_torch import kernels
 from tetra_tpu_torch.phy import dqpsk
 
-__all__ = ["demod_fused", "demod_fused_plain", "demodulate_hard_ri_pallas",
-           "demodulate_hard_slots_ri_pallas"]
+__all__ = ["SPS_RATES", "demod_fused", "demod_fused_plain",
+           "demodulate_hard_ri_pallas", "demodulate_hard_slots_ri_pallas"]
 
-_SPS = 2                       # the kernel's one rate (every path's)
-_TILE = 2048                   # csrc/demod_fused.cu kTile: samples a tile
+SPS_RATES = range(1, 12)       # the rates the kernel is built for
 
 
 def demod_fused_plain(re, im, sps: int = 2):
@@ -46,20 +47,19 @@ def demod_fused_plain(re, im, sps: int = 2):
 def demod_fused(re: torch.Tensor, im: torch.Tensor, sps: int = 2):
     """K5: planes re, im f32 [C, T] -> (bits int8 [C, 2·(T//sps)],
     best int64 [C], met f32 [C, sps]), as demod_fused_plain. CPU planes
-    take the plain version; CUDA planes launch the kernel, which is
-    built for sps 2 only (any other rate raises)."""
+    take the plain version; CUDA planes launch the kernel. sps must be
+    in SPS_RATES."""
+    if sps not in SPS_RATES:
+        raise ValueError(f"demod_fused: sps must be 1..11, got {sps}")
     if re.device.type == "cpu":
         return demod_fused_plain(re, im, sps)
     kernels.require_cuda(re, "re", torch.float32, 2)
     kernels.require_cuda(im, "im", torch.float32, 2)
     if re.shape != im.shape or re.device != im.device:
         raise ValueError("demod_fused: re and im differ in shape or device")
-    if sps != _SPS:
-        raise ValueError(f"demod_fused: the kernel runs sps {_SPS} only, "
-                         f"got {sps}")
     Cn, T = re.shape
     n_sym = T // sps
-    row = -(-T // _TILE) * (_TILE // sps)
+    row = kernels.lib().tt_demod_fused_scratch(sps, T)
     taps = dqpsk.rrc_taps(sps)
     dev = re.device
     bits = torch.empty((Cn, 2 * n_sym), dtype=torch.int8, device=dev)

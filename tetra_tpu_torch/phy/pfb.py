@@ -8,6 +8,10 @@ demod rate (kernel K3, `resample_rows`). Both work on the time-major
 [frames, C] layout; only the decimated product is transposed to
 [channel, time]. Channels come out in natural order.
 
+`pfb_channelize_ri` is the JAX package's XLA path (channel-major, the
+DFT as two real [C, C] matmuls), plain PyTorch with no kernel; it is
+what the mesh-sharded channelizer and the tools of the JAX package call.
+
 Rows outside the resampler's input read as zero at both stream edges,
 as in the TPU kernel (the XLA path of tetra_tpu replicates the edge
 samples instead; the two differ only within the filter reach of the
@@ -26,7 +30,7 @@ from tetra_tpu_torch import kernels
 from tetra_tpu_torch.phy.channelizer import DEMOD_RATE, _resample_block_plan
 
 __all__ = ["pfb_prototype", "_dft_matrices", "_twiddles", "_fft_plan",
-           "PfbFrontEnd",
+           "pfb_channelize_ri", "PfbFrontEnd",
            "pfb_channelize_rows", "pfb_channelize_rows_plain",
            "resample_rows", "resample_rows_plain", "pfb_to_demod_rate_ri"]
 
@@ -79,6 +83,55 @@ def _fft_plan(n_chan: int):
         parts.append(np.stack([twc[e], tws[e]], -1).reshape(-1, 2))
         Ns *= R
     return tuple(radices), np.concatenate(parts)
+
+
+def pfb_channelize_ri(re, im, n_chan: int, taps_per_branch: int = 16):
+    """Planar wideband [..., T] float32 (T >= n_chan·taps_per_branch) ->
+    all channels (chan_re, chan_im) [..., C, M], M = (T - J·C)/(C/2) + 1.
+
+    2x-oversampled weighted overlap-add, hop H = C/2: frame m is
+    b[m, k] = Σ_j x[mH + jC + k] · h[jC + k], summed as 2J shifted
+    multiply-adds over the hop-strided view, then the analysis DFT
+    across k as two real matmuls with the cos/sin matrices and the
+    (-1)^{cm} rotation that recentres channel c. The math of
+    tetra_tpu.phy.pfb.pfb_channelize_ri; kernel K2 computes the same
+    frames time-major."""
+    if n_chan % 2:
+        raise ValueError("n_chan must be even")
+    hop = n_chan // 2
+    J = taps_per_branch
+    nfilt = n_chan * J
+    hj = torch.as_tensor(pfb_prototype(n_chan, J).reshape(J, n_chan),
+                         device=re.device)
+
+    def frames(x):
+        x = x.to(torch.float32)
+        T = x.shape[-1]
+        if T < nfilt:
+            raise ValueError(f"pfb_channelize_ri: {T} samples, fewer than "
+                             f"one filter length ({nfilt})")
+        M = (T - nfilt) // hop + 1
+        nblk = T // hop
+        u = x[..., :nblk * hop].reshape(*x.shape[:-1], nblk, hop)
+        acc = [torch.zeros(x.shape[:-1] + (M, hop), dtype=torch.float32,
+                           device=x.device) for _ in range(2)]
+        for l in range(2 * J):
+            j, half = divmod(l, 2)
+            acc[half] = acc[half] + u[..., l:l + M, :] * \
+                hj[j, half * hop:(half + 1) * hop]
+        return torch.cat(acc, dim=-1)                     # [..., M, C]
+
+    br_r, br_i = frames(re), frames(im)
+    M = br_r.shape[-2]
+    cosm, sinm = (torch.as_tensor(a, device=re.device)
+                  for a in _dft_matrices(n_chan))
+    yr = br_r @ cosm.T + br_i @ sinm.T
+    yi = br_i @ cosm.T - br_r @ sinm.T
+    cm = (torch.arange(M, device=re.device)[:, None]
+          * torch.arange(n_chan, device=re.device)[None, :]) % 2
+    sign = 1.0 - 2.0 * cm.to(torch.float32)
+    return ((yr * sign).transpose(-1, -2).contiguous(),
+            (yi * sign).transpose(-1, -2).contiguous())
 
 
 @functools.lru_cache(maxsize=8)

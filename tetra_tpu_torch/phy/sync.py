@@ -7,7 +7,7 @@ tetra_find_train_seq (tetra_burst.c:269-339, priority y, n, p, q, x)
 and emitting one 510-bit timeslot per step once locked.
 
 The per-bit correlation scan runs once for the whole chunk on the
-device (phy.burst.train_seq_match); `align_stream` then replays the
+device (phy.burst.match_columns); `align_stream` then replays the
 reference's buffer/state arithmetic over that match map in O(1) work
 per 64-bit feed quantum, on the host, line for line as the JAX package
 has it. The multi-carrier path uses the vectorised twin in
@@ -102,7 +102,7 @@ def compute_match_map(bits, device=None) -> np.ndarray:
     never reads pad bits); positions whose window would cross the true
     end are re-masked per template below, so the result is exactly the
     unpadded map."""
-    from tetra_tpu_torch.phy.burst import train_seq_match
+    from tetra_tpu_torch.phy.burst import match_columns
     bits = np.asarray(bits)
     L = bits.shape[-1]
     ncol = len(_LOCKED_COLS)
@@ -113,7 +113,7 @@ def compute_match_map(bits, device=None) -> np.ndarray:
         bits = np.pad(bits, [(0, 0)] * (bits.ndim - 1) + [(0, Lp - L)])
     x = torch.as_tensor(bits.reshape(-1, Lp).astype(np.int8),
                         device=resolve_device(device))
-    m = train_seq_match(x).cpu().numpy()
+    m = match_columns(x, _LOCKED_COLS).cpu().numpy()
     m = m.reshape(bits.shape[:-1] + (Lp, ncol))[..., :L, :].copy()
     if Lp != L:
         for c, n in enumerate(_SEQ_LEN[:ncol]):

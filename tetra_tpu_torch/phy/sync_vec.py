@@ -29,7 +29,7 @@ import torch
 
 from tetra_tpu_torch import constants as C
 from tetra_tpu_torch.device import resolve_device
-from tetra_tpu_torch.phy.burst import LOCKED_COLS, train_seq_match
+from tetra_tpu_torch.phy.burst import LOCKED_COLS, match_columns
 from tetra_tpu_torch.phy.sync import (FEED_BITS, RING_BITS, AlignedSlot,
                                       SyncEvent, _PRIO, _SEQS, _SEQ_LEN)
 
@@ -47,7 +47,7 @@ def sync_scan(bits, state0, buf_start0, nbuf0, nfs0, slot0, fed0: int,
     """Run `steps` feed quanta of the reference state machine over bits
     [B, L] (chunk-relative int32 positions).
 
-    tol: training-sequence bit-error tolerance (burst.train_seq_match).
+    tol: training-sequence bit-error tolerance (burst.match_columns).
     0 replays the reference's exact matcher. With tol > 0 a locked slot
     first checks the expected offsets (SYNC at 214, NORM at 244) and
     falls back to the first-match scan only when neither holds, and the
@@ -68,7 +68,7 @@ def sync_scan(bits, state0, buf_start0, nbuf0, nfs0, slot0, fed0: int,
     B, L = bits.shape
     i32 = torch.int32
     idx = torch.arange(L, dtype=i32, device=dev)
-    match = train_seq_match(bits, tol)                  # [B, L, 3]
+    match = match_columns(bits, LOCKED_COLS, tol)       # [B, L, 3]
     prev = torch.cat([torch.zeros((B, 1), dtype=bits.dtype, device=dev),
                       bits[:, :-1]], dim=1)
     false_col = torch.zeros((B, 1), dtype=torch.bool, device=dev)

@@ -218,7 +218,7 @@ def k5(dev, cs, kernels, re, im, reps: int) -> dict:
             "wrapper_ms": cuda_ms(wrap, reps),
             "wrapper_device_ms": device_ms(wrap, reps, ""),
             **cs.k5_bound(re.numel()),
-            "occupancy": occupancy(kernels, "tt_demod_fused"),
+            "occupancy": occupancy(kernels, "tt_demod_fused_sps", 2),
             "k7": stage_times(dev, reps=reps)}
 
 

@@ -42,10 +42,17 @@ s % 3 = SYNC, SCH/F, NDB, each with its own payload), bit-packed, the
 scrambling code, and each slot's expected kind and type-1 payloads; the
 64 slots with 64 zero bits at each end make one 32,768-bit carrier.
 
+eq_degraded.npz (`eq`, after `steady`) holds the JAX fast="eq" chain's
+per-slot kinds and CRC flags on the 64 recorded carriers
+(steady_fixture.EQ_RECORD, 16 per channel group) of the 4096-carrier
+degraded capture (steady_fixture.eq_capture, rebuilt from its numpy
+seeds, so JAX and the port see the same planes), with the channel table
+and the seed.
+
 Runs on the CPU with jax (the rows come from tetra_tpu's TX chain);
 the argument picks one file (default: all):
 
-    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [prod|parity|pyplane|snr8|snr8parity|steady|mixer]
+    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [prod|parity|pyplane|snr8|snr8parity|steady|mixer|eq]
 
 mixer_offgrid.npz (`mixer`, after `prod`, whose rows it uses) holds the
 mixer-bank records of mixer_record: the off-grid full-width
@@ -628,6 +635,37 @@ def main_steady(out=ROOT / "tetra_tpu_torch" / "data" / "steady_mixed.npz"):
     print(f"wrote {out} ({out.stat().st_size} bytes)")
 
 
+def main_eq(out=ROOT / "tetra_tpu_torch" / "data" / "eq_degraded.npz"):
+    """The JAX equalised chain (locked_step_ri(fast="eq"), the fused
+    decode) on the recorded carriers of the degraded capture."""
+    import jax.numpy as jnp
+    from tetra_tpu.lmac import steady
+    from tetra_tpu_torch import steady_fixture as sf
+    fx = sf.load()
+    car = np.asarray(sf.EQ_RECORD)
+    re, im = sf.eq_capture(sf.EQ_CAR, car, sf.EQ_SEED, fx)
+    res = steady.locked_step_ri(
+        jnp.asarray(re), jnp.asarray(im),
+        jnp.asarray(np.full(len(car), fx["init"], np.uint32)),
+        phase_bit=sf.PHASE_BIT, n_slots=sf.N_SLOTS, fast="eq",
+        decoders=("fused",))
+    kinds = np.asarray(res["kinds"]).astype(np.int8)
+    crc_ok = np.asarray(res["crc_ok"])
+    groups = list(sf.EQ_GROUPS.values())
+    taps = np.zeros((len(groups), 3), np.complex64)
+    for g, (h, _, _) in enumerate(groups):
+        taps[g, :len(h)] = h
+    np.savez_compressed(
+        out, carriers=car, kinds=kinds, crc_ok=crc_ok,
+        n_car=np.int64(sf.EQ_CAR), seed=np.int64(sf.EQ_SEED), taps=taps,
+        cfo=np.asarray([g[1] for g in groups]),
+        snr_db=np.asarray([g[2] for g in groups]))
+    g = sf.eq_group(sf.EQ_CAR, car)
+    print({k: f"{int(crc_ok[g == i].sum())}/{crc_ok[g == i].size}"
+           for i, k in enumerate(sf.EQ_GROUPS)})
+    print(f"wrote {out} ({out.stat().st_size} bytes)")
+
+
 def main(out=ROOT / "tetra_tpu_torch" / "data" / "prod_mixed.npz"):
     plain, enc, n_tail = rows()
     # the stored rows must rebuild mixed_batch exactly
@@ -655,7 +693,7 @@ def main(out=ROOT / "tetra_tpu_torch" / "data" / "prod_mixed.npz"):
 
 if __name__ == "__main__":
     modes = ["prod", "parity", "pyplane", "snr8", "snr8parity", "steady",
-             "mixer"]
+             "mixer", "eq"]
     which = sys.argv[1:] or modes
     if not set(which) <= set(modes):
         sys.exit(f"usage: {sys.argv[0]} [{'|'.join(modes)}]")
@@ -673,3 +711,5 @@ if __name__ == "__main__":
         main_steady()
     if "mixer" in which:
         main_mixer()
+    if "eq" in which:
+        main_eq()
