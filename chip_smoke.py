@@ -165,12 +165,35 @@ Phases (one JSON line each):
               the bench's shapes (card = CPU, samples per second) and on
               the fixture's carriers on 8 channels (every slot decoded);
               pfb_channelize_ri against K2's rows.
+ 11. mesh     MESH_RANKS (4) ranks on cuda:0, each its own process and
+              CUDA context, joined by gloo (tetra_tpu_torch.parallel):
+              prod-1024's bits through MultiCarrierReceiver(native,
+              mesh=<4-rank carrier mesh>), 256 carriers a rank: every
+              carrier's (bursts, crc_ok, crc_wrong) equal to the JAX bits
+              path's record and to the one-process native pass on the
+              same bits, its TL-SDUs equal carrier by carrier, each
+              rank's sink holding only its own carriers, the event totals
+              the record's; the soft fused chunk on the dry run's capture
+              (K4 on every rank) equal to the one-process run;
+              sharded_locked_step on steady-4096 (1024 carriers a rank)
+              and sharded_locked_step_2d on its slots cut at bit 0 (2
+              hosts x 2 chips, each host rank holding its own 32 slots)
+              equal to the one-process chain, 262,144 CRC-OK; the
+              time-sharded PFB (512 channels, 8.4 M samples) within
+              1e-4 of the peak of the one-process channelizer, both
+              timed; the dry run (tetra_tpu_torch.parallel.dryrun); then
+              bench stage 6's iq8 and iq4 ingest over stream_map, the
+              CRC counts equal to a plain loop's, samples per second.
+              wall_s of each check (the slowest rank's) and its kernel
+              launches summed over the ranks.
 Then the kernel summary line (each kernel's launches on its main path,
 max_abs_err, ms, plain_ms, the bound computed from the run's shapes
 and what sets it, and library_ms: null, no single PyTorch call
 computes any of these functions; for K1, K2 and K3 also their launches
 on the Python plane's pass, for K1 also on the mixer pass's two planes
-and on the eq, wide512 and tx passes, for K2, K3 and K5 on wide512,
+and on the eq, wide512 and tx passes, on the mesh phase's prod-1024
+bits and steady chains and on stream_map, for K4 on the mesh phase's
+soft fused chunk, for K5 on stream_map, for K2, K3 and K5 on wide512,
 one entry per K5 rate,
 for K3 its share of the bound; for K1, K2,
 K4, K5 and K6 also resident blocks
@@ -273,27 +296,14 @@ def rel_err(got, want) -> tuple[float, float]:
     return d, scale
 
 
-def _wrappers() -> dict:
-    from tetra_tpu_torch.ops.viterbi_assembled import decode_assembled
-    from tetra_tpu_torch.ops.viterbi_decode import decode_k6
-    from tetra_tpu_torch.ops.viterbi_segmented import decode_segmented_k4
-    from tetra_tpu_torch.phy.demod_fused import demod_fused
-    from tetra_tpu_torch.phy.pfb import pfb_channelize_rows, resample_rows
-    return {"viterbi_assembled": decode_assembled,
-            "pfb_wola": pfb_channelize_rows,
-            "resample_rows": resample_rows,
-            "viterbi_segmented": decode_segmented_k4,
-            "viterbi_decode": decode_k6,
-            "demod_fused": demod_fused}
-
-
 def reset_launches():
-    for fn in _wrappers().values():
-        fn.launches = 0
+    from tetra_tpu_torch import kernels
+    kernels.reset_launches()
 
 
 def launches() -> dict:
-    return {k: fn.launches for k, fn in _wrappers().items()}
+    from tetra_tpu_torch import kernels
+    return kernels.launches()
 
 
 def slot_batch(n_rows: int, dev, seed: int = 1):
@@ -2460,6 +2470,433 @@ def run_wide512(dev, card: str) -> dict:
     return res
 
 
+MESH_RANKS = 4                    # ranks of the mesh phase, all on cuda:0
+MESH_PFB_CHAN = 512               # the time-sharded PFB: wide512's channels
+MESH_PFB_T = 1 << 23              # 8.4 M wideband samples, 2.1 M a rank
+MESH_PFB_STRIDE = 16              # frames kept of each rank's PFB shard
+ING_CAR, ING_SLOTS, ING_CHUNKS = 1024, 16, 6   # bench stage 6
+
+
+def steady_cut_capture(n_car: int):
+    """steady-4096's slots cut at bit 0 (no pad: the slot grid starts at
+    sample 0, as tools/dist_worker.build_capture cuts it), sps 2:
+    (re, im) [n_car, 64 x 510] float32; only the 64 distinct rolls are
+    modulated."""
+    import numpy as np
+    from tetra_tpu_torch import steady_fixture as sf
+    from tetra_tpu_torch.phy.dqpsk import modulate
+    fx = sf.load()
+    slots = fx["slots"][sf.slot_index(sf.N_SLOTS)].reshape(sf.N_SLOTS, -1)
+    base = modulate(slots, sps=2)
+    rows = np.arange(n_car) % sf.N_SLOTS
+    return (np.ascontiguousarray(base.real.astype(np.float32)[rows]),
+            np.ascontiguousarray(base.imag.astype(np.float32)[rows]))
+
+
+def _mesh_check(dist, torch, fn):
+    """(fn(), this rank's seconds, launches): the launch counts set to 0
+    and the ranks lined up by a barrier just before fn, the clock
+    stopped after a synchronize."""
+    from tetra_tpu_torch import kernels
+    kernels.reset_launches()
+    dist.barrier()
+    t0 = time.perf_counter()
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, kernels.launches()
+
+
+def mesh_rank(rank: int, world: int, dev, ks_path: str) -> dict:
+    """One rank of the mesh phase (every rank on cuda:0, gloo): the
+    prod-1024 bits through the native receiver on a carrier mesh, the
+    soft fused chunk on the dry run's capture, sharded_locked_step on
+    steady-4096, sharded_locked_step_2d on the cut capture (2 x 2), the
+    time-sharded PFB, and the dry run's rank outputs; per check this
+    rank's outputs, seconds and kernel launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from tetra_tpu_torch import prod_fixture, steady_fixture as sf
+    from tetra_tpu_torch.parallel import dist_worker, dryrun, mesh as M
+    from tetra_tpu_torch.parallel.launch import rank_env_check
+    from tetra_tpu_torch.rx_multi import MultiCarrierReceiver
+    from tetra_tpu_torch.umac.native_exec import EV
+    rank_env_check()
+    res = {}
+    car = M.make_mesh(axis_name="car")
+
+    # 1. prod-1024's bits, 4 chunks, each rank walking 256 carriers
+    bits, _ = prod_fixture.mixed_bits(N_CAR, 0.1)
+    cuts = np.linspace(0, bits.shape[1], N_CHUNKS + 1).astype(int)
+
+    def prod_bits(sink):
+        mc = MultiCarrierReceiver(
+            np.zeros(N_CAR), fs=25_000.0 * N_CAR, control_plane="native",
+            mesh=car, keystore_path=ks_path, device=dev,
+            tl_sdu_sink=lambda *a: sink.append(dist_worker.sink_entry(*a)))
+        for k in range(N_CHUNKS):
+            mc.process_bits(bits[:, cuts[k]:cuts[k + 1]],
+                            final=k == N_CHUNKS - 1)
+        return mc
+
+    _mesh_check(dist, torch, lambda: prod_bits([]))     # warm
+    sink = []
+    mc, wall, n_l = _mesh_check(dist, torch, lambda: prod_bits(sink))
+    f = mc._fast
+    kinds = np.concatenate([e["kind"] for e in mc.native_events])
+    res["prod_bits"] = {
+        "owned": [f.car0, f.car0 + f.n_local], "wall_s": wall,
+        "launches": n_l, "sink": sink,
+        "stats": np.asarray([(c.stats.bursts, c.stats.crc_ok,
+                              c.stats.crc_wrong)
+                             for c in mc.carriers[f.car0:f.car0 + f.n_local]]),
+        "events": {k: int((kinds == getattr(EV, v)).sum())
+                   for k, v in (("traffic_slots", "TRAFFIC"),
+                                ("tl_sdus", "TLSDU"),
+                                ("frag_ends", "FRAG_END"))}}
+    del mc, bits
+
+    # 2. the soft fused chunk on the dry run's capture (K4 on each rank)
+    inp = dryrun.inputs(world, dev)
+    dryrun.run_fast(inp, dev, car, soft=True)             # warm
+    soft, wall, n_l = _mesh_check(
+        dist, torch, lambda: dryrun.run_fast(inp, dev, car, soft=True))
+    res["soft"] = {"outs": soft, "wall_s": wall, "launches": n_l}
+
+    # 3. sharded_locked_step on steady-4096, 1024 carriers a rank
+    mesh = M.make_mesh()
+    fx = sf.load()
+    re_g, im_g = sf.capture(STEADY_CAR, fx=fx)
+    re = M.local_shard(re_g, mesh, ("carrier", None), dev)
+    im = M.local_shard(im_g, mesh, ("carrier", None), dev)
+    del re_g, im_g
+    inits = torch.full((re.shape[0],), int(fx["init"]), dtype=torch.int64,
+                       device=dev)
+    step = M.sharded_locked_step(mesh, phase_bit=sf.PHASE_BIT,
+                                 n_slots=sf.N_SLOTS)
+    step(re, im, inits)                                   # warm
+    out, wall, n_l = _mesh_check(dist, torch, lambda: step(re, im, inits))
+    res["steady"] = {"coords": M.mesh_coords(mesh), "wall_s": wall,
+                     "launches": n_l,
+                     **{k: out[k].cpu().numpy()
+                        for k in ("kinds", "crc_ok", "schf_type1",
+                                  "crc_ok_total")}}
+    del re, im, out
+
+    # 4. sharded_locked_step_2d, 2 hosts x 2 chips: each host rank holds
+    # only its own time window (32 slots) of its 2048 carriers
+    mesh2 = M.make_mesh_2d(hosts=2)
+    re_g, im_g = steady_cut_capture(STEADY_CAR)
+    spec_t = ("chip", "host")
+    re = M.local_shard(re_g, mesh2, spec_t, dev)
+    im = M.local_shard(im_g, mesh2, spec_t, dev)
+    del re_g, im_g
+    inits = torch.full((re.shape[0],), int(fx["init"]), dtype=torch.int64,
+                       device=dev)
+    step2 = M.sharded_locked_step_2d(mesh2)
+    step2(re, im, inits)                                  # warm
+    out, wall, n_l = _mesh_check(dist, torch, lambda: step2(re, im, inits))
+    res["steady_2d"] = {"coords": M.mesh_coords(mesh2), "wall_s": wall,
+                        "launches": n_l, "window": list(re.shape),
+                        **{k: out[k].cpu().numpy()
+                           for k in ("kinds", "crc_ok", "schf_type1",
+                                     "crc_ok_total")}}
+    del re, im, out
+
+    # the time-sharded PFB (plain pfb_channelize_ri, as the JAX package
+    # calls XLA there), timed as the median of 5 steps after a warm-up
+    tmesh = M.make_mesh(axis_name="time")
+    rng = np.random.default_rng(7)
+    wre = rng.standard_normal(MESH_PFB_T, dtype=np.float32)
+    wim = rng.standard_normal(MESH_PFB_T, dtype=np.float32)
+    xr = M.local_shard(wre, tmesh, ("time",), dev)
+    xi = M.local_shard(wim, tmesh, ("time",), dev)
+    chan = M.sharded_pfb_channelize(tmesh, MESH_PFB_CHAN)
+    walls = []
+    for _ in range(6):
+        (cr, ci), t, _ = _mesh_check(dist, torch, lambda: chan(xr, xi))
+        walls.append(t)
+    res["pfb"] = {"coords": M.mesh_coords(tmesh), "ms": 1e3 * float(
+        np.median(walls[1:])), "frames": int(cr.shape[-1]),
+        "re": cr[:, ::MESH_PFB_STRIDE].cpu().numpy(),
+        "im": ci[:, ::MESH_PFB_STRIDE].cpu().numpy()}
+    del xr, xi, cr, ci
+
+    # 5. the dry run's rank outputs
+    res["dryrun"], wall, n_l = _mesh_check(
+        dist, torch, lambda: dryrun.rank_outputs(rank, world, dev))
+    res["dryrun_wall_s"] = wall
+    rank_env_check()
+    return res
+
+
+def _stitched(outs, key, field, spec, sizes):
+    from tetra_tpu_torch.parallel.mesh import stitch
+    return stitch([(o[key]["coords"], o[key][field]) for o in outs], spec,
+                  sizes)
+
+
+def ingest_chunks(dev):
+    """bench stage 6's inputs (bench.py:220-230, 260-263): 16 SCH/F
+    bursts (seeded type-1 and AACH bits, the port's encoder) between 64
+    zero bits, modulated at sps 2, tiled over ING_CAR carriers at 0.7
+    of full scale, as int8 planes [2, C, T] and as 4+4-bit IQ [C, T];
+    the cell scrambling code per carrier."""
+    import numpy as np
+    from tetra_tpu_torch import tx
+    from tetra_tpu_torch.io import stream
+    from tetra_tpu_torch.ops.scramble import scramb_get_init
+    from tetra_tpu_torch.phy.dqpsk import modulate
+    init = scramb_get_init(262, 42, 1)
+    rng = np.random.default_rng(0)
+    uniq = tx.make_schf_bursts(
+        rng.integers(0, 2, (ING_SLOTS, 268)).astype(np.int8),
+        rng.integers(0, 2, (ING_SLOTS, 14)).astype(np.int8), init, dev)
+    pad = np.zeros(64, np.int8)
+    bits = np.concatenate([pad, uniq.cpu().numpy().reshape(-1), pad])
+    iq = modulate(bits[None], sps=2)[0]
+    re = np.tile(iq.real, (ING_CAR, 1)) * 0.7
+    im = np.tile(iq.imag, (ING_CAR, 1)) * 0.7
+    return (np.stack(stream.quantize_iq(re, im)), stream.quantize_iq4(re, im),
+            np.full(ING_CAR, init, np.uint32))
+
+
+def check_stream_map(dev, card: str) -> dict:
+    """bench stage 6 over stream_map: the iq8 and iq4 ingest steps
+    (dequantize, locked_step_ri(fast="pallas", fused decode): K5 and K1)
+    on ING_CHUNKS chunks of ING_CAR carriers, the CRC-OK count of each
+    chunk equal to a plain loop's over the same chunks (upload, step,
+    one after the other); samples per second of the median of 3 passes,
+    a pass ending when the last count is on the host."""
+    import numpy as np
+    import torch
+    from tetra_tpu_torch.io import stream
+    from tetra_tpu_torch.lmac.steady import locked_step_ri
+    iq8, iq4, init = ingest_chunks(dev)
+
+    def locked(init_d, re, im):
+        return locked_step_ri(re, im, init_d, phase_bit=64,
+                              n_slots=ING_SLOTS, fast="pallas",
+                              decoders=("fused",))["crc_ok"].sum()
+
+    steps = {"iq8": lambda i, c: locked(i, *stream.dequantize_iq(c[0], c[1])),
+             "iq4": lambda i, c: locked(i, *stream.dequantize_iq4(c))}
+    res = {"carriers": ING_CAR, "chunks": ING_CHUNKS, "card": card}
+    for name, chunk in (("iq8", iq8), ("iq4", iq4)):
+        step = steps[name]
+        chunks = [chunk] * ING_CHUNKS
+        init_d = torch.as_tensor(init.astype(np.int64), device=dev)
+        plain = [int(step(init_d, torch.as_tensor(c, device=dev)))
+                 for c in chunks]
+
+        def run():
+            outs = list(stream.stream_map(step, chunks, device=dev,
+                                          static=init))
+            return [int(o) for o in outs]
+
+        got = run()
+        reset_launches()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            walls.append(time.perf_counter() - t0)
+        n_l = launches()
+        t = float(np.median(walls))
+        samples = ING_CHUNKS * ING_CAR * chunk.shape[-1]
+        res[name] = {"crc_ok": got, "plain_crc_ok": plain, "wall_s": t,
+                     "samples_per_s": samples / t,
+                     "carriers_realtime": samples / t / 36_000.0,
+                     "launches": n_l}
+        if got != plain or min(got) != ING_CAR * ING_SLOTS:
+            raise AssertionError(f"stream_map {name}: {got} vs the plain "
+                                 f"loop's {plain}")
+        if n_l["demod_fused"] <= 0 or n_l["viterbi_assembled"] <= 0:
+            raise AssertionError(f"stream_map {name}: K5 or K1 not "
+                                 f"launched: {n_l}")
+    return res
+
+
+def run_mesh(ks_path: str, dev, card: str, fx: dict) -> dict:
+    """The mesh phase: MESH_RANKS ranks on cuda:0 (launch.py, gloo) run
+    mesh_rank; each check's outputs stitched here and held against the
+    one-process run of the port on the card (and prod-1024's against the
+    JAX bits path's record), then stream_map. Each check's wall_s is the
+    slowest rank's."""
+    import numpy as np
+    import torch
+    from tetra_tpu_torch import prod_fixture, steady_fixture as sf
+    from tetra_tpu_torch.lmac.steady import locked_step_ri
+    from tetra_tpu_torch.parallel import dist_worker, dryrun
+    from tetra_tpu_torch.parallel.launch import launch
+    from tetra_tpu_torch.phy.pfb import pfb_channelize_ri
+    from tetra_tpu_torch.rx_multi import MultiCarrierReceiver
+    t0 = time.perf_counter()
+    outs = launch(mesh_rank, MESH_RANKS, ks_path, device=dev.type,
+                  timeout=900)
+    res = {"ranks": MESH_RANKS, "device": str(dev), "card": card,
+           "launch_s": time.perf_counter() - t0}
+    wall = lambda key: max(o[key]["wall_s"] for o in outs)
+    add = lambda key: {k: sum(o[key]["launches"][k] for o in outs)
+                       for k in outs[0][key]["launches"]}
+
+    # 1. prod-1024's bits: the union of the ranks' carriers against the
+    # JAX bits path and the one-process native pass on the same bits
+    bits, _ = prod_fixture.mixed_bits(N_CAR, 0.1, fx)
+    cuts = np.linspace(0, bits.shape[1], N_CHUNKS + 1).astype(int)
+    sink = []
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    mc = MultiCarrierReceiver(
+        np.zeros(N_CAR), fs=25_000.0 * N_CAR, control_plane="native",
+        keystore_path=ks_path, device=dev,
+        tl_sdu_sink=lambda *a: sink.append(dist_worker.sink_entry(*a)))
+    for k in range(N_CHUNKS):
+        mc.process_bits(bits[:, cuts[k]:cuts[k + 1]], final=k == N_CHUNKS - 1)
+    sync()
+    one_s = time.perf_counter() - t0
+    one = np.asarray([(c.stats.bursts, c.stats.crc_ok, c.stats.crc_wrong)
+                      for c in mc.carriers])
+    mesh_st = np.zeros_like(one)
+    for o in outs:
+        lo, hi = o["prod_bits"]["owned"]
+        mesh_st[lo:hi] = o["prod_bits"]["stats"]
+        if {e[0] for e in o["prod_bits"]["sink"]} - set(range(lo, hi)):
+            raise AssertionError("a rank's TL-SDU sink holds another "
+                                 "rank's carrier")
+    by_car = lambda entries: {c: [e[1:] for e in entries if e[0] == c]
+                              for c in range(N_CAR)}
+    sink_mesh = by_car([e for o in outs for e in o["prod_bits"]["sink"]])
+    events = {k: sum(o["prod_bits"]["events"][k] for o in outs)
+              for k in outs[0]["prod_bits"]["events"]}
+    want = {k: int(fx[f"ref_{k}"][1]) for k in events}
+    prod = {"wall_s": wall("prod_bits"), "one_process_wall_s": one_s,
+            "carriers_equal_jax_bits_path": int(
+                (mesh_st == fx["jax_bits_stats"]).all(1).sum()),
+            "carriers_equal_one_process": int((mesh_st == one).all(1).sum()),
+            "crc_ok": int(mesh_st[:, 1].sum()),
+            "crc_err": int(mesh_st[:, 2].sum()), **events,
+            "jax_bits_path": want,
+            "tl_sdus_equal_one_process": sink_mesh == by_car(sink),
+            "launches": add("prod_bits")}
+    res["prod_bits"] = prod
+    if (prod["carriers_equal_jax_bits_path"] != N_CAR
+            or prod["carriers_equal_one_process"] != N_CAR
+            or not prod["tl_sdus_equal_one_process"] or events != want):
+        raise AssertionError(f"mesh prod-1024 bits: {prod}")
+    if prod["launches"]["viterbi_assembled"] <= 0:
+        raise AssertionError("mesh prod-1024 bits: K1 not launched")
+    del mc, sink, sink_mesh
+
+    # 2. the soft fused chunk against the one-process run
+    inp = dryrun.inputs(MESH_RANKS, dev)
+    dryrun.run_fast(inp, dev, soft=True)                  # warm
+    sync()
+    t0 = time.perf_counter()
+    ref_soft = dryrun.run_fast(inp, dev, soft=True)
+    sync()
+    one_s = time.perf_counter() - t0
+    for o in outs:
+        for a, b in zip(o["soft"]["outs"], ref_soft, strict=True):
+            for k in dryrun.FAST_KEYS:
+                if not np.array_equal(a[k], b[k]):
+                    raise AssertionError(f"mesh soft fast path: {k}")
+    res["soft"] = {"wall_s": wall("soft"), "one_process_wall_s": one_s,
+                   "chunks": len(ref_soft),
+                   "crc_ok": sum(int(d["okA"].sum()) for d in ref_soft),
+                   "launches": add("soft"),
+                   "k4_launches_per_rank": [o["soft"]["launches"][
+                       "viterbi_segmented"] for o in outs]}
+    if min(res["soft"]["k4_launches_per_rank"]) <= 0:
+        raise AssertionError("mesh soft fast path: K4 not launched on "
+                             "every rank")
+
+    # 3. and 4. the steady chains against the one-process chain
+    fxs = sf.load()
+    inits = torch.full((STEADY_CAR,), int(fxs["init"]), dtype=torch.int64,
+                       device=dev)
+    for key, planes, kw, spec, sizes in (
+            ("steady", lambda: sf.capture(STEADY_CAR, fx=fxs),
+             dict(phase_bit=sf.PHASE_BIT, n_slots=sf.N_SLOTS),
+             ("carrier",), {"carrier": MESH_RANKS}),
+            ("steady_2d", lambda: steady_cut_capture(STEADY_CAR),
+             dict(phase_bit=0, n_slots=sf.N_SLOTS, decoders=("fused",)),
+             ("chip", "host"), {"host": 2, "chip": MESH_RANKS // 2})):
+        re_np, im_np = planes()
+        re = torch.as_tensor(re_np, device=dev)
+        im = torch.as_tensor(im_np, device=dev)
+        del re_np, im_np
+        locked_step_ri(re, im, inits, **kw)                 # warm
+        sync()
+        t0 = time.perf_counter()
+        ref = locked_step_ri(re, im, inits, **kw)
+        sync()
+        one_s = time.perf_counter() - t0
+        diff = {}
+        for f in ("kinds", "crc_ok", "schf_type1"):
+            want_f = (ref["schf"].type1 if f == "schf_type1" else ref[f])
+            got_f = _stitched(outs, key, f, spec, sizes)
+            diff[f] = int((got_f != want_f.cpu().numpy()).sum())
+        totals = {int(o[key]["crc_ok_total"]) for o in outs}
+        res[key] = {"wall_s": wall(key), "one_process_wall_s": one_s,
+                    "mismatches": diff,
+                    "crc_ok_total": sorted(totals),
+                    "launches": add(key),
+                    "rank_window": outs[0][key].get("window")}
+        if any(diff.values()) or totals != {STEADY_CAR * sf.N_SLOTS}:
+            raise AssertionError(f"mesh {key}: {res[key]}")
+        if res[key]["launches"]["viterbi_assembled"] <= 0:
+            raise AssertionError(f"mesh {key}: K1 not launched")
+        del re, im, ref
+
+    # the time-sharded PFB against the one-process channelizer
+    rng = np.random.default_rng(7)
+    wre = torch.as_tensor(rng.standard_normal(MESH_PFB_T, dtype=np.float32),
+                          device=dev)
+    wim = torch.as_tensor(rng.standard_normal(MESH_PFB_T, dtype=np.float32),
+                          device=dev)
+    from profile_torch_demod import cuda_ms
+    one_ms = cuda_ms(lambda: pfb_channelize_ri(wre, wim, MESH_PFB_CHAN),
+                     reps=5)
+    cr, ci = pfb_channelize_ri(wre, wim, MESH_PFB_CHAN)
+    n_valid = cr.shape[-1] - (16 * MESH_PFB_CHAN) // (MESH_PFB_CHAN // 2) - 1
+    err, scale = 0.0, 0.0
+    for i, ref in enumerate((cr, ci)):
+        got = _stitched(outs, "pfb", ("re", "im")[i], (None, "time"),
+                        {"time": MESH_RANKS})
+        keep = np.arange(0, outs[0]["pfb"]["frames"] * MESH_RANKS,
+                         MESH_PFB_STRIDE)
+        on = keep < n_valid
+        want_np = ref.cpu().numpy()[:, keep[on]]
+        err = max(err, float(np.abs(got[:, on] - want_np).max()))
+        scale = max(scale, float(np.abs(want_np).max()))
+    res["pfb"] = {"channels": MESH_PFB_CHAN, "samples": MESH_PFB_T,
+                  "sharded_ms": max(o["pfb"]["ms"] for o in outs),
+                  "one_process_ms": one_ms, "max_abs_err": err,
+                  "peak": scale}
+    if err > TOL * scale:
+        raise AssertionError(f"mesh PFB: {res['pfb']}")
+    del wre, wim, cr, ci
+
+    # 5. the dry run
+    inp = dryrun.inputs(MESH_RANKS, dev)
+    counts = dryrun.check([o["dryrun"] for o in outs],
+                          dryrun.unsharded(inp, dev), inp)
+    res["dryrun"] = {"wall_s": max(o["dryrun_wall_s"] for o in outs),
+                     **counts,
+                     "launches": {k: sum(o["dryrun"]["launches"][k]
+                                         for o in outs)
+                                  for k in outs[0]["dryrun"]["launches"]}}
+
+    # 6. stream_map
+    t0 = time.perf_counter()
+    res["stream_map"] = check_stream_map(dev, card)
+    res["stream_map"]["wall_s"] = time.perf_counter() - t0
+    return res
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2600,6 +3037,9 @@ def main() -> int:
         emit({"phase": "eq", **eq})
         wide = run_wide512(dev, card)
         emit({"phase": "wide512", **wide})
+        with prod_fixture.keystore_file() as ks_path:
+            mesh = run_mesh(ks_path, dev, card, fx)
+        emit({"phase": "mesh", **mesh})
         # launch shape at the main path's calls: fused K1 (K 512, three
         # maps, n288) and the soft path's K4 (N 4, n288)
         k1_occ = kernels.occupancy("tt_viterbi_assembled", 512, 3, 288)
@@ -2656,6 +3096,14 @@ def main() -> int:
              "angle_launches": eq["angle"]["launches"]["viterbi_assembled"],
              "wide512_launches": wide["launches"]["viterbi_assembled"],
              "tx_launches": tx_res["soak"]["launches"]["viterbi_assembled"],
+             "mesh_launches": mesh["prod_bits"]["launches"][
+                 "viterbi_assembled"],
+             "mesh_steady_launches": mesh["steady"]["launches"][
+                 "viterbi_assembled"],
+             "mesh_steady_2d_launches": mesh["steady_2d"]["launches"][
+                 "viterbi_assembled"],
+             "stream_map_launches": mesh["stream_map"]["iq8"]["launches"][
+                 "viterbi_assembled"],
              **{f"steady_{k}": k1s[k] for k in k1s
                 if k.startswith(("ms_", "plain_ms_"))},
              **k1["bound_n288"], "library_ms": None, **k1_occ},
@@ -2683,6 +3131,7 @@ def main() -> int:
              "source": "tetra_tpu_torch/csrc/viterbi_segmented.cu",
              "replaces": "tetra_tpu/ops/viterbi_pallas.py:967",
              "launches": s_launch["viterbi_segmented"],
+             "mesh_launches": mesh["soft"]["launches"]["viterbi_segmented"],
              "max_abs_err": float(k4["max_abs_err"]),
              "ms": k4["ms_n288"], "plain_ms": k4["plain_ms_n288"],
              "ms_n80": k4["ms_n80"], "plain_ms_n80": k4["plain_ms_n80"],
@@ -2702,6 +3151,8 @@ def main() -> int:
              "replaces": "tetra_tpu/phy/demod_pallas.py:165",
              "launches": d_launch["demod_fused"],
              "wide512_launches": wide["launches"]["demod_fused"],
+             "stream_map_launches": mesh["stream_map"]["iq8"]["launches"][
+                 "demod_fused"],
              "max_abs_err": float(k5["max_abs_err"]),
              "ms": k5["ms"], "plain_ms": k5["plain_ms"],
              **k5["bound"], "library_ms": None, **k5_occ},

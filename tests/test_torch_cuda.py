@@ -514,3 +514,35 @@ def test_eq_chain_on_card_matches_cpu():
     assert torch.equal(outs[0]["crc_ok"].cpu(), outs[1]["crc_ok"])
     assert torch.equal(outs[0]["bits"].cpu().reshape(2, 64, 510)[on],
                        outs[1]["bits"].reshape(2, 64, 510)[on])
+
+
+def test_early_fetch_on_card_matches_cpu():
+    """The bundle's early fetch (pinned buffer + event) on the card: every
+    collected field equals the CPU pipeline's, fetched or not, and the
+    pinned buffer returns to the free list for the next fetch."""
+    from tetra_tpu_torch import prod_fixture
+    from tetra_tpu_torch.fastpath import FastChunkPipeline
+    dev = cuda_device()
+    bits, _ = prod_fixture.mixed_bits(8, 0.25)
+    cuts = np.linspace(0, 16_000, 5).astype(int)
+    card, cpu = FastChunkPipeline(8, dev), FastChunkPipeline(8, "cpu")
+    pending, got, want = [], [], []
+    for k in range(4):
+        chunk = bits[:, cuts[k]:cuts[k + 1]]
+        if pending:
+            card.prefetch(pending[0])
+            card.prefetch(pending[0])        # a second call copies nothing
+        h = card.submit(chunk)
+        if h is not None:
+            pending.append(h)
+        hc = cpu.submit(chunk)
+        if hc is not None:
+            want.append(cpu.collect(hc))
+        if len(pending) > 1:
+            got.append(card.collect(pending.pop(0)))
+            assert len(card._pinned) == 1
+    got += [card.collect(h) for h in pending]
+    assert len(got) == len(want) > 1
+    for a, b in zip(got, want):
+        for key in b:
+            assert np.array_equal(a[key], b[key]), key

@@ -156,17 +156,90 @@ print("ok")
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
+class _TwoRankMesh:
+    """Rank 0 of a two-rank carrier mesh, without a process group: the
+    receiver raises before any collective would run."""
+    mesh_dim_names = ("car",)
+    shape = (2,)
+
+    def get_local_rank(self, dim):
+        return 0
+
+
 @pytest.mark.parametrize("kwargs", [
-    dict(pfb_channels=None, mesh=object()),
-    dict(mesh=object()),
+    dict(entry="process_iq4c"),
+    dict(entry="process_iq8"),
 ])
 def test_unported_options_raise(kwargs):
-    """Mesh sharding raises on both front ends (the mixer bank, without
-    pfb_channels, is ported)."""
-    base = dict(fs=2e5, pfb_channels=np.arange(8), n_chan=8, device=CPU)
-    base.update(kwargs)
-    with pytest.raises(NotImplementedError):
-        MultiCarrierReceiver([], **base)
+    """The PFB wideband entries on a multi-rank mesh raise: tetra_tpu's
+    fused PFB chunk is not carrier-sharded, and on a multi-process mesh
+    it parses garbage (tests/test_torch_distributed.py runs the mixer
+    bank, which decodes there, and this entry on real ranks)."""
+    rx = MultiCarrierReceiver([], fs=2e5, pfb_channels=np.arange(8),
+                              n_chan=8, control_plane="native",
+                              mesh=_TwoRankMesh(), device=CPU)
+    raw = np.zeros(40_000 if kwargs["entry"] == "process_iq4c" else 80_000,
+                   np.uint8 if kwargs["entry"] == "process_iq4c" else np.int8)
+    with pytest.raises(NotImplementedError, match="multi-rank"):
+        getattr(rx, kwargs["entry"])(raw)
+
+
+def _prefetch_runs(entry: str, monkeypatch, early: bool, g_slack=None):
+    """The 8-carrier slice through the native plane in 4 chunks (final
+    on the last), with or without the early fetch; returns (receiver,
+    handles prefetched, handles re-run)."""
+    from tetra_tpu_torch import fastpath, prod_fixture
+    bits, _ = prod_fixture.mixed_bits(8, 0.25)
+    bits = bits[:, :16_000]
+    fetched, reruns = [], []
+    pf, rr = fastpath.FastChunkPipeline.prefetch, \
+        fastpath.FastChunkPipeline._overflow_rerun
+    with monkeypatch.context() as m:
+        m.setattr(fastpath.FastChunkPipeline, "prefetch",
+                  lambda self, h: (fetched.append(h), pf(self, h))[1])
+        m.setattr(fastpath.FastChunkPipeline, "_overflow_rerun",
+                  lambda self, h: (reruns.append(h), rr(self, h))[1])
+        if not early:
+            m.setattr(MultiCarrierReceiver, "_prefetch_pending",
+                      lambda self: None)
+        if g_slack is not None:
+            m.setattr(fastpath, "G_SLACK", g_slack)
+        rx = MultiCarrierReceiver([], fs=2e5, pfb_channels=np.arange(8),
+                                  n_chan=8, control_plane="native",
+                                  device=CPU)
+        if entry == "bits":
+            feed, call = bits, rx.process_bits
+        else:
+            feed, call = prod_fixture.wideband_capture(bits), rx.process_iq4c
+        cuts = np.linspace(0, feed.shape[-1], 5).astype(int)
+        for k in range(4):
+            call(feed[..., cuts[k]:cuts[k + 1]], final=k == 3)
+    return rx, fetched, reruns
+
+
+@pytest.mark.parametrize("entry", ["bits", "iq4c"])
+def test_early_fetch_keeps_events_and_stats(entry, monkeypatch):
+    """The pending bundle's early fetch changes no event and no stat, on
+    process_bits and on process_iq4c; the fetch is issued."""
+    ref, fetched, _ = _prefetch_runs(entry, monkeypatch, early=False)
+    assert not fetched
+    got, fetched, _ = _prefetch_runs(entry, monkeypatch, early=True)
+    assert len(fetched) >= 2
+    _same_receivers(ref, got, 8)
+    assert all(c.stats.crc_ok > 0 for c in got.carriers)
+
+
+def test_early_fetch_dropped_on_overflow_rerun(monkeypatch):
+    """A row budget too small for every chunk forces _overflow_rerun on
+    chunks whose bundles were fetched early: the collect parses each
+    re-run's bundle, not the stale fetch, and the events and stats equal
+    a run with the default budget."""
+    ref, _, reruns = _prefetch_runs("bits", monkeypatch, early=True)
+    assert not reruns
+    got, fetched, reruns = _prefetch_runs("bits", monkeypatch, early=True,
+                                          g_slack=-6)
+    assert reruns and any(h in fetched for h in reruns)
+    _same_receivers(ref, got, 8)
 
 
 def _imports_of_jax_package(path: pathlib.Path) -> list:
@@ -183,12 +256,16 @@ def _imports_of_jax_package(path: pathlib.Path) -> list:
 
 def test_port_sources_import_nothing_of_jax_package():
     """No module of the port, nor chip_smoke.py, nor the port's profiling
-    and bench tools imports tetra_tpu (as opposed to tetra_tpu_torch);
-    the transmitter, self-test and equaliser modules are among them."""
+    and bench tools, nor the rank functions of its multi-rank tests
+    imports tetra_tpu (as opposed to tetra_tpu_torch); the transmitter,
+    self-test, equaliser and parallel modules are among them."""
     files = sorted((ROOT / "tetra_tpu_torch").rglob("*.py"))
-    for mod in ("tx", "selftest", "testpdu", "phy/equalize"):
+    for mod in ("tx", "selftest", "testpdu", "phy/equalize",
+                "parallel/mesh", "parallel/collectives", "parallel/launch",
+                "parallel/dist_worker", "parallel/dryrun"):
         assert ROOT / "tetra_tpu_torch" / f"{mod}.py" in files, mod
     files += [ROOT / "chip_smoke.py", ROOT / "tools" / "rtl_tcp_mock.py",
+              ROOT / "tests" / "_torch_ranks.py",
               *sorted((ROOT / "tools").glob("profile_torch_*.py")),
               *sorted((ROOT / "tools").glob("bench_torch_*.py"))]
     assert len(files) > 30

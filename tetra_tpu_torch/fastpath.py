@@ -27,7 +27,22 @@ bits (soft < 0), and the FEC gathers the soft slot rows and decodes them with ke
 bits fed to a soft pipeline become full-confidence ±31 values.
 
 The bundle bytes and the traffic payloads are identical to tetra_tpu's
-for the same inputs. Sharded meshes are not ported.
+for the same inputs.
+
+Bundle fetch (`prefetch`): the receiver starts the copy of its oldest
+pending bundle to pinned host memory before it submits the next chunk,
+so the copy is queued on the stream ahead of that chunk's program and
+`collect` waits for the copy alone, not for the later chunks queued
+behind it (tetra_tpu's copy_to_host_async, rx_multi.py:432-440).
+
+Carrier-sharded meshes (`mesh=`, a torch DeviceMesh whose ranks are
+processes, possibly sharing one card): each rank keeps the ring and the
+carries of its own carriers only and runs the whole chunk program on
+them (`_sharded_fused_chunk`: a local row budget G / shards, global
+carrier ids in the rows, no collectives). `collect_local` parses this
+rank's bundle segment; `collect` all-gathers every rank's segment and
+parses them all, and when any shard overflowed its budget all ranks
+re-run the chunk together.
 """
 from __future__ import annotations
 
@@ -39,6 +54,8 @@ import torch.nn.functional as F
 
 from tetra_tpu_torch import constants as C
 from tetra_tpu_torch.io import stream
+from tetra_tpu_torch.parallel import collectives
+from tetra_tpu_torch.parallel.mesh import mesh_size
 from tetra_tpu_torch.lmac import fused, pipeline
 from tetra_tpu_torch.ops import scramble
 from tetra_tpu_torch.phy import dqpsk, pfb
@@ -71,7 +88,8 @@ def _to_i32(x: torch.Tensor) -> torch.Tensor:
 
 def _fused_chunk_body(ring, chunk, end_rel: int, rebase: int, st0, bs0,
                       nb0, nfs0, fed_rel: int, scr0, steps: int, feed: int,
-                      g_rows: int, soft: bool = False, tol: int = 0):
+                      g_rows: int, car_offset: int = 0, soft: bool = False,
+                      tol: int = 0):
     """One ingest chunk on the device.
 
     ring [B, RING_PAD] int8: last RING_PAD stream bits (carry).
@@ -81,7 +99,9 @@ def _fused_chunk_body(ring, chunk, end_rel: int, rebase: int, st0, bs0,
     end_rel: window-relative stream end; rebase: window base delta
     since the carry was written; fed_rel: scan position in this window.
     st0, bs0, nb0, nfs0 [B] int32 sync carry; scr0 [B] int64 cell
-    scrambling codes. g_rows: global row budget G.
+    scrambling codes. g_rows: global row budget G. car_offset: the
+    global id of carrier 0 when the body runs as one shard of a
+    carrier-sharded mesh, so that rows carry global carrier ids.
 
     Returns (bundle [G*ROW_BYTES + B*32] int8, new_ring,
     (st, bs, nb, nfs, scr_final), t4_full [G, 432] int8, t4_b2 [G, 216]
@@ -194,12 +214,13 @@ def _fused_chunk_body(ring, chunk, end_rel: int, rebase: int, st0, bs0,
              | (pk[:, _PACK_BITS].to(torch.int32) << 2)
              | (pk[:, _PACK_BITS + 1].to(torch.int32) << 3)
              | (gvalid.to(torch.int32) << 4))
+    gcar_g = gcar + car_offset
     row = torch.cat([
         pay_b.to(torch.uint8),
         flags.to(torch.uint8)[:, None],
         delta.clamp(0, 255).to(torch.uint8)[:, None],
-        (gcar & 255).to(torch.uint8)[:, None],
-        (gcar >> 8).to(torch.uint8)[:, None]], dim=1)    # [G, 40]
+        (gcar_g & 255).to(torch.uint8)[:, None],
+        (gcar_g >> 8).to(torch.uint8)[:, None]], dim=1)    # [G, 40]
     side = torch.stack([n_slots, tail, st, bs, nb, nfs, si,
                         _to_i32(scr_final)], dim=1).contiguous()
     bundle = torch.cat([row.view(torch.int8).reshape(G * ROW_BYTES),
@@ -225,7 +246,7 @@ def fused_chunk(ring, packed, end_rel, rebase, st0, bs0, nb0, nfs0, fed_rel,
     """Packed-bits entry: packed [B, lc_pad//8] uint8 (MSB first)."""
     return _fused_chunk_body(ring, _unpack(packed, lc_pad, soft), end_rel,
                              rebase, st0, bs0, nb0, nfs0, fed_rel, scr0,
-                             steps, feed, g_rows, soft, tol)
+                             steps, feed, g_rows, soft=soft, tol=tol)
 
 
 def _iq_to_ri(fmt: str, raw):
@@ -263,8 +284,37 @@ def fused_chunk_iq(ring, raw, channel_idx, end_rel, rebase, st0, bs0, nb0,
     if lc_pad != keep:
         chunk = F.pad(chunk, (0, lc_pad - keep))
     return _fused_chunk_body(ring, chunk, end_rel, rebase, st0, bs0, nb0,
-                             nfs0, fed_rel, scr0, steps, feed, g_rows, soft,
-                             tol)
+                             nfs0, fed_rel, scr0, steps, feed, g_rows,
+                             soft=soft, tol=tol)
+
+
+def _sharded_fused_chunk(mesh, axis: str, steps: int, feed: int,
+                         g_rows: int, lc_pad: int, soft: bool = False,
+                         tol: int = 0):
+    """The fused chunk as one shard of a carrier-sharded mesh: this
+    rank runs the WHOLE chunk program (sync scan, slot compaction, SB1
+    pre-decode, scrambling fill, FEC, packing) on its own carrier slice
+    with a local row budget g_rows / shards, so the compaction never
+    crosses ranks and the program has no collectives: carriers are
+    independent receivers (the reference scales by one OS process chain
+    per carrier, src/receiver1:8). Rows carry global carrier ids through
+    car_offset, so the shards' bundle segments in rank order parse to
+    the unsharded program's decisions. Returns fn(ring, packed, end_rel,
+    rebase, st, bs, nb, nfs, fed_rel, scr) on this rank's carriers."""
+    ns = mesh_size(mesh, axis)
+    if g_rows % ns:
+        raise ValueError(f"row budget {g_rows} does not split over {ns} "
+                         "shards")
+    gl = g_rows // ns
+    shard = mesh.get_local_rank(axis)
+
+    def body(ring, packed, end_rel, rebase, st, bs, nb, nfs, fed_rel, scr):
+        B = ring.shape[0]
+        return _fused_chunk_body(ring, _unpack(packed, lc_pad, soft),
+                                 end_rel, rebase, st, bs, nb, nfs, fed_rel,
+                                 scr, steps, feed, gl, car_offset=shard * B,
+                                 soft=soft, tol=tol)
+    return body
 
 
 def _iq_frontend_bits(raw, channel_idx, fmt: str, n_chan: int, fs: float,
@@ -302,13 +352,18 @@ class ChunkHandle:
     """A dispatched chunk whose bundle has not been fetched. Holds the
     re-dispatch closure so a budget overflow can re-run it; the handle
     is updated in place on a re-run, so that rows gathered from t4_full
-    and t4_b2 by the collected slot_refs are the rows those refs index."""
+    and t4_b2 by the collected slot_refs are the rows those refs index.
+    On a mesh the tensors are this rank's shard (its bundle segment)."""
     bundle: torch.Tensor       # device [G*ROW_BYTES + B*32] int8
     t4_full: torch.Tensor      # device [G, 432] int8
     t4_b2: torch.Tensor        # device [G, 216] int8
     g_rows: int
     inputs: tuple | None = None   # (dispatch fn(scr, g_rows), scr it ran with)
     maxs: int = 0                 # sufficient per-carrier budget
+    # the early fetch (FastChunkPipeline.prefetch): (host copy of the
+    # bundle, CUDA event recorded after the copy and the pinned buffer
+    # it lies in, or None and None on the CPU)
+    fetch: tuple | None = None
 
 
 @dataclass
@@ -345,33 +400,66 @@ class FastChunkPipeline:
 
     soft=True: the ring carries int8 soft values, submit_iq demodulates
     soft and the FEC runs kernel K4; tol (training-sequence bit errors
-    the sync scan accepts) defaults to 2 on a soft pipeline, 0 else."""
+    the sync scan accepts) defaults to 2 on a soft pipeline, 0 else.
+
+    mesh: a torch.distributed DeviceMesh; the chunk program then runs
+    carrier-sharded over its `mesh_axis` dimension
+    (`_sharded_fused_chunk`): this rank keeps only its own carriers'
+    ring and carry on `device`, `submit` takes the full host chunk (as
+    tetra_tpu's replicated payload) and uploads this rank's rows, and
+    n_carriers must divide evenly over the axis. `multiproc` is true
+    when the axis spans more than one rank (every rank is a process);
+    such a pipeline reads its results per rank with `collect_local`, or
+    gathered with `collect`."""
 
     def __init__(self, n_carriers: int, device, soft: bool = False,
-                 tol: int | None = None):
+                 tol: int | None = None, mesh=None, mesh_axis: str = "car"):
         self.n = n_carriers
         self.device = torch.device(device)
         self.feed = FEED_BITS
         self.soft = soft
         self.tol = (2 if soft else 0) if tol is None else tol
-        z = lambda v=0: torch.full((n_carriers,), v, dtype=torch.int32,
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        self.shards = mesh_size(mesh, mesh_axis) if mesh is not None else 1
+        if n_carriers % self.shards:
+            raise ValueError(f"{n_carriers} carriers do not split over "
+                             f"{self.shards} shards")
+        self.multiproc = self.shards > 1
+        self.shard = mesh.get_local_rank(mesh_axis) if mesh is not None \
+            else 0
+        self.n_local = n_carriers // self.shards
+        self.car0 = self.shard * self.n_local   # first carrier of this rank
+        nl = self.n_local
+        z = lambda v=0: torch.full((nl,), v, dtype=torch.int32,
                                    device=self.device)
         # positions are relative to carry_base; abs 0 == rel RING_PAD
         self.state = PipelineState(
-            ring=torch.zeros((n_carriers, RING_PAD), dtype=torch.int8,
+            ring=torch.zeros((nl, RING_PAD), dtype=torch.int8,
                              device=self.device),
             carry=(z(), z(RING_PAD), z(), z(RING_PAD),
-                   torch.zeros(n_carriers, dtype=torch.int64,
-                               device=self.device)),
+                   torch.zeros(nl, dtype=torch.int64, device=self.device)),
             carry_base=-RING_PAD, end=0, fed=0)
         self._outstanding: list[ChunkHandle] = []
+        # the early fetch's pinned host buffers not in use, each sized to
+        # the largest bundle seen when it was made
+        self._pinned: list[torch.Tensor] = []
+        self._pinned_numel = 0
+
+    def _local_rows(self, bits):
+        """This rank's carrier rows of a full-width chunk."""
+        if self.mesh is None:
+            return bits
+        return bits[self.car0:self.car0 + self.n_local]
 
     def submit(self, bits) -> ChunkHandle | None:
         """Dispatch one chunk of per-carrier hard bits [B, Lc] (numpy,
-        packed on the host, or a device tensor, packed on the device)."""
+        packed on the host, or a device tensor, packed on the device);
+        on a mesh, B is every carrier and this rank takes its rows."""
         B, Lc = bits.shape
         if B != self.n:
             raise ValueError(f"expected {self.n} carriers, got {B}")
+        bits = self._local_rows(bits)
         lc_pad = -(-Lc // 32) * 32
         if isinstance(bits, torch.Tensor):
             packed = _pack_bits_device(bits.to(self.device), lc_pad)
@@ -388,9 +476,15 @@ class FastChunkPipeline:
             s.end += Lc
             return None
         feed, soft, tol = self.feed, self.soft, self.tol
+        mesh, axis = self.mesh, self.mesh_axis
 
         def make_fn(ring0, rebase, end_rel, fed_rel, st, bs, nb, nfs):
             def dispatch(scr, g_rows):
+                if mesh is not None:
+                    fn = _sharded_fused_chunk(mesh, axis, steps, feed,
+                                              g_rows, lc_pad, soft, tol)
+                    return fn(ring0, packed, end_rel, rebase, st, bs, nb,
+                              nfs, fed_rel, scr)
                 return fused_chunk(ring0, packed, end_rel, rebase, st, bs,
                                    nb, nfs, fed_rel, scr, steps, feed,
                                    g_rows, lc_pad, soft, tol)
@@ -401,7 +495,17 @@ class FastChunkPipeline:
                   n_chan: int, fs: float, sps: int = 2) -> ChunkHandle | None:
         """Dispatch one WIDEBAND chunk: raw quantized RF samples (with the
         caller's overlap-save history) -> the fused chunk program. keep:
-        how many trailing demod bits are NEW stream bits."""
+        how many trailing demod bits are NEW stream bits.
+
+        Not on a multi-rank mesh: the fused front end runs unsharded, and
+        tetra_tpu's submit_iq on a multi-process mesh parses garbage
+        (its collect_local reads an unsharded bundle as shard segments);
+        such a receiver takes process_bits or the mixer bank."""
+        if self.multiproc:
+            raise NotImplementedError(
+                "submit_iq on a multi-rank mesh: the PFB front end fused "
+                "into the chunk program is not carrier-sharded (tetra_tpu "
+                "fails here too); feed demodulated bits through submit")
         lc_pad = -(-keep // 32) * 32
         s = self.state
         steps = int((s.end + keep - s.fed) // self.feed)
@@ -447,12 +551,64 @@ class FastChunkPipeline:
         self._outstanding.append(h)
         return h
 
+    def prefetch(self, h: ChunkHandle) -> None:
+        """Start the copy of h's bundle to the host, once: a non-blocking
+        copy on the current stream into a pinned buffer, then an event.
+        Work queued after this call does not delay `collect`'s wait. On
+        the CPU the bundle is its own host copy."""
+        if h.fetch is not None:
+            return
+        if self.device.type != "cuda":
+            h.fetch = (h.bundle, None, None)
+            return
+        n = h.bundle.numel()
+        if n > self._pinned_numel:
+            self._pinned_numel = n
+            self._pinned = []           # free buffers too small from now
+        if self._pinned:
+            buf = self._pinned.pop()
+        else:
+            buf = torch.empty(self._pinned_numel, dtype=torch.int8,
+                              pin_memory=True)
+        buf[:n].copy_(h.bundle, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        h.fetch = (buf[:n], ready, buf)
+
+    def _fetched(self, h: ChunkHandle) -> np.ndarray:
+        """h's bundle on the host: the early fetch's buffer once its copy
+        has landed (the pinned buffer then returns to the free list,
+        unless a larger bundle has been seen since), else a blocking
+        copy."""
+        if h.fetch is None:
+            return h.bundle.cpu().numpy()
+        host, ready, buf = h.fetch
+        h.fetch = None
+        if ready is None:
+            return host.numpy()
+        ready.synchronize()
+        out = host.numpy().copy()
+        if buf.numel() >= self._pinned_numel:
+            self._pinned.append(buf)
+        return out
+
     def collect(self, h: ChunkHandle) -> dict:
         """Fetch one chunk's bundle and decode it to numpy arrays:
         {carrier, kind, okA, okB, delta, payload [n, 408], slot_ref,
          n_slots [B], tail [B], scramb [B], side_carrier}. A row-budget
-        overflow re-runs the chunk with the sufficient budget first."""
-        d = self._decode_segments(h.g_rows, h.bundle.cpu().numpy())
+        overflow re-runs the chunk with the sufficient budget first.
+
+        On a mesh every rank gathers every rank's bundle segment (equal
+        sizes) and parses them all, so every rank returns the whole
+        chunk's dict; slot_refs index the shards' stacked t4 rows. An
+        overflow in any shard is seen by every rank, and all re-run."""
+        seg = self._fetched(h)
+        if self.multiproc:
+            group = self.mesh.get_group(self.mesh_axis)
+            segs = np.stack(collectives.all_gather_host(seg, group))
+        else:
+            segs = seg[None]
+        d = self._decode_segments(h.g_rows, segs, np.arange(self.shards))
         if d is None:
             if h.inputs is None or h.g_rows >= self.n * h.maxs:
                 raise RuntimeError("slot compaction overflow (bound bug)")
@@ -462,18 +618,48 @@ class FastChunkPipeline:
             self._outstanding.remove(h)
         return d
 
-    def _decode_segments(self, G: int, bundle: np.ndarray) -> dict | None:
-        """Parse a fetched bundle into the collect dict; None signals a
-        row-budget overflow."""
-        B = self.n
-        rows = np.ascontiguousarray(bundle[:G * ROW_BYTES]) \
-            .view(np.uint8).reshape(G, ROW_BYTES)
-        side = np.ascontiguousarray(bundle[G * ROW_BYTES:]) \
-            .view(np.int32).reshape(B, SIDE_I32)
-        total = int(side[:, 0].sum())
-        if total > G:
+    def collect_local(self, h: ChunkHandle) -> dict:
+        """Multi-rank variant of collect: decode ONLY this rank's bundle
+        segment. The carrier axis is embarrassingly parallel (the
+        reference scales by one OS process per carrier,
+        src/receiver1:8), so each rank walks its own carriers and never
+        fetches another's. "side_carrier" maps the returned n_slots,
+        tail and scramb entries to global carrier ids."""
+        seg = self._fetched(h)
+        d = self._decode_segments(h.g_rows, seg[None],
+                                  np.asarray([self.shard], np.int32))
+        if d is None:
+            # a re-run would have to be agreed on by every rank; size
+            # G_SLACK for the workload instead (as tetra_tpu)
+            raise RuntimeError("row-budget overflow on a multi-process "
+                               "mesh; raise the budget slack")
+        if h in self._outstanding:
+            self._outstanding.remove(h)
+        return d
+
+    def _decode_segments(self, G: int, segs: np.ndarray, ids) -> dict | None:
+        """Parse bundle segments segs [k, G/ns*ROW_BYTES + B/ns*32] of
+        the shards `ids` into the collect dict; None signals a row-budget
+        overflow in any of them."""
+        ns = self.shards
+        gl = G // ns
+        Bl = self.n // ns
+        k = len(ids)
+        rows = np.ascontiguousarray(segs[:, :gl * ROW_BYTES]) \
+            .view(np.uint8).reshape(k, gl, ROW_BYTES)
+        side = np.ascontiguousarray(segs[:, gl * ROW_BYTES:]) \
+            .view(np.int32).reshape(k, Bl, SIDE_I32)
+        tot_s = side[..., 0].sum(axis=1)                # rows per shard
+        if (tot_s > gl).any():
             return None
-        sel = rows[:total]
+        side_carrier = (ids[:, None] * Bl
+                        + np.arange(Bl, dtype=np.int32)).reshape(-1)
+        sel = np.concatenate([rows[i, :tot_s[i]] for i in range(k)])
+        slot_ref = np.concatenate(
+            [ids[i] * gl + np.arange(tot_s[i], dtype=np.int32)
+             for i in range(k)]).astype(np.int32)
+        total = len(sel)
+        side = side.reshape(-1, SIDE_I32).copy()
         f = sel[:, _SEC_BYTES].astype(np.int32)
         if not (f & 16).all():
             raise RuntimeError("valid rows must form a prefix")
@@ -503,21 +689,23 @@ class FastChunkPipeline:
             "kind": kk,
             "delta": sel[:, _SEC_BYTES + 1].astype(np.int32),
             "payload": payload,
-            "slot_ref": np.arange(total, dtype=np.int32),
+            "slot_ref": slot_ref,
             "n_slots": side[:, 0], "tail": side[:, 1],
             "scramb": side[:, 7].view(np.uint32),
-            "side_carrier": np.arange(B, dtype=np.int32),
+            "side_carrier": side_carrier,
         }
 
     def _dispatch(self, h: ChunkHandle, g_rows: int, scr_override=None):
         """(Re-)run a chunk from its saved closure with row budget
-        g_rows, updating the handle in place; returns the carry."""
+        g_rows, updating the handle in place; returns the carry. An early
+        fetch of the old bundle is dropped: it is stale."""
         fn, scr = h.inputs
         if scr_override is not None:
             scr = scr_override
             h.inputs = (fn, scr)
         bundle, _, carry, t4f, t4b = fn(scr, g_rows)
         h.bundle, h.t4_full, h.t4_b2, h.g_rows = bundle, t4f, t4b, g_rows
+        h.fetch = None
         return carry
 
     def _overflow_rerun(self, h: ChunkHandle) -> None:

@@ -23,7 +23,8 @@ import threading
 
 import torch
 
-__all__ = ["lib", "check", "stream_ptr", "build", "occupancy"]
+__all__ = ["lib", "check", "stream_ptr", "build", "occupancy", "wrappers",
+           "launches", "reset_launches"]
 
 _CSRC = pathlib.Path(__file__).parent / "csrc"
 _BUILD = pathlib.Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -165,3 +166,30 @@ def require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name} must have {ndim} dims, got {t.dim()}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def wrappers() -> dict:
+    """The kernel wrappers by kernel name. Each carries `launches`, the
+    count of its kernel's launches in this process."""
+    from tetra_tpu_torch.ops.viterbi_assembled import decode_assembled
+    from tetra_tpu_torch.ops.viterbi_decode import decode_k6
+    from tetra_tpu_torch.ops.viterbi_segmented import decode_segmented_k4
+    from tetra_tpu_torch.phy.demod_fused import demod_fused
+    from tetra_tpu_torch.phy.pfb import pfb_channelize_rows, resample_rows
+    return {"viterbi_assembled": decode_assembled,
+            "pfb_wola": pfb_channelize_rows,
+            "resample_rows": resample_rows,
+            "viterbi_segmented": decode_segmented_k4,
+            "viterbi_decode": decode_k6,
+            "demod_fused": demod_fused}
+
+
+def reset_launches() -> None:
+    """Set every wrapper's launch count to 0."""
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def launches() -> dict:
+    """Every wrapper's launch count."""
+    return {k: fn.launches for k, fn in wrappers().items()}

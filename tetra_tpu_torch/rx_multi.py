@@ -51,7 +51,19 @@ soft Viterbi (kernel K4) over the same kind-compacted FEC. The mixer
 bank demodulates hard, as in tetra_tpu, and its bits enter the soft
 pipeline as full-confidence values: the combination warns.
 
-Not ported (NotImplementedError): mesh sharding.
+Before each native-plane submit the oldest pending chunk's bundle starts
+its copy to the host (`_prefetch_pending`), ahead of the new chunk's
+program on the stream, as tetra_tpu's copy_to_host_async does.
+
+mesh (native plane): a torch.distributed DeviceMesh with a "car"
+dimension; the fused chunk program runs carrier-sharded over its ranks
+(fastpath.FastChunkPipeline). On a mesh of several ranks, each rank
+fetches and walks only its own carriers (collect_local) and traffic
+dumps and voice are skipped, as in tetra_tpu; bits enter through
+process_bits or the mixer bank (every rank demodulates every carrier and
+uploads its own rows), while the PFB wideband entries raise, since
+tetra_tpu's fused PFB chunk is not carrier-sharded and parses garbage on
+a multi-process mesh.
 """
 from __future__ import annotations
 
@@ -135,8 +147,6 @@ class MultiCarrierReceiver:
         if demod != "hard" and control_plane != "native":
             raise ValueError("soft demod rides the fastpath (native "
                              "control plane)")
-        if mesh is not None:
-            raise NotImplementedError("mesh sharding is not ported")
         if demod == "soft" and pfb_channels is None:
             warnings.warn("demod='soft' on the mixer bank: its front end "
                           "demodulates hard (as tetra_tpu does), so these "
@@ -205,7 +215,7 @@ class MultiCarrierReceiver:
                 self.gsmtap = GsmtapSink(gsmtap_host)
                 self.native_cp.set_gsmtap(True)
             self._fast = FastChunkPipeline(n_carriers, self.device,
-                                           soft=demod == "soft")
+                                           soft=demod == "soft", mesh=mesh)
             self._pending = []
             # chunks kept in flight while streaming (final=False)
             self.pipeline_depth = 2
@@ -300,6 +310,7 @@ class MultiCarrierReceiver:
         if final:
             self._reset_wb_stream()
         if self.control_plane == "native":
+            self._prefetch_pending()
             h = self._fast.submit_iq(feed, fmt, keep, self._chan_idx, n,
                                      self.fs, sps=self.sps)
             return self._native_drain(h, final)
@@ -413,6 +424,7 @@ class MultiCarrierReceiver:
         if bits.ndim != 2 or bits.shape[0] != len(self.carriers):
             raise ValueError("bits must be [n_carriers, T]")
         if self.control_plane == "native":
+            self._prefetch_pending()
             return self._native_drain(self._fast.submit(bits), final)
         if isinstance(bits, torch.Tensor):
             bits = bits.cpu().numpy()
@@ -450,6 +462,12 @@ class MultiCarrierReceiver:
             self._buf = self._buf[:, keep - self._buf_base:]
             self._buf_base = keep
         return [rx.stats for rx in self.carriers]
+
+    def _prefetch_pending(self):
+        """Start the oldest pending bundle's copy to the host before the
+        next chunk is submitted (tetra_tpu rx_multi.py:432-440)."""
+        if self._pending:
+            self._fast.prefetch(self._pending[0])
 
     def _native_drain(self, h, final: bool) -> list[RxStats]:
         """Queue one dispatched chunk and drain the pipeline to its
@@ -549,8 +567,11 @@ class MultiCarrierReceiver:
     def _collect_walk(self, h):
         """Fetch one chunk and run the native control plane: numpy record
         assembly + ONE C++ walk that advances the TDMA clocks and
-        applies SYNC side effects; then the chunk's egress."""
-        d = self._fast.collect(h)
+        applies SYNC side effects; then the chunk's egress. On a
+        multi-rank mesh this rank fetches and walks only its own
+        carriers (collect_local; side_carrier holds their global ids)."""
+        d = (self._fast.collect_local(h) if self._fast.multiproc
+             else self._fast.collect(h))
         n = len(d["carrier"])
         recs = np.column_stack([
             d["carrier"], d["kind"], d["okA"], d["okB"], d["delta"],
@@ -592,5 +613,8 @@ class MultiCarrierReceiver:
         if arena is not None and len(arena):
             self._payload_egress(evd, arena)
         tr = np.flatnonzero(kinds == EV.TRAFFIC)
-        if len(tr) and self.carriers and self.carriers[0].dumpdir:
+        # a multi-rank mesh skips the dumps and voice, as tetra_tpu:
+        # voice dumping is a single-host concern
+        if (len(tr) and self.carriers and self.carriers[0].dumpdir
+                and not self._fast.multiproc):
             self._dump_traffic(h, evd, tr, arena)
