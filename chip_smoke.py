@@ -10,10 +10,16 @@ Phases (one JSON line each):
   2. kernels  each hand-written kernel against its plain PyTorch
               version on the card, at the main path's shapes and at the
               CPU-test shapes: K1 (assembled Viterbi + CRC, n_sym 288,
-              80 and 144) bit-identical, K2 (PFB WOLA; C 1024, 8 and 12)
-              and K3 (resampler) within max|d| <= 1e-4 * max|plain|, with
+              80 and 144) bit-identical, K2 (PFB WOLA; C 1024, 512 at
+              wide-512's n_slots-168 length, 8, 12 and 1000) and K3
+              (resampler, on K2's rows: time-major, channel-major, and
+              channel-major over a permuted half of the channels as
+              int64 and int32) within max|d| <= 1e-4 * max|plain|, with
               torch.fft.fft over K2's [M, C] frames timed beside K2 (the
-              DFT stage alone, for reference), K4 (f32 segmented
+              DFT stage alone, for reference), K3's conv2d yardstick
+              (k3_library, held to the same tolerance first) and the
+              gather and transposes the front end ran before K3 wrote
+              channel-major (layout_copy_ms) timed beside K3, K4 (f32 segmented
               Viterbi, n_sym 288 at ~21.5k rows, 80, 77 with two
               restarts and 292) bit-identical; times of both. K1 and K4
               also on the edge cases of their lane-group layout (row
@@ -188,15 +194,17 @@ Phases (one JSON line each):
               launches summed over the ranks.
 Then the kernel summary line (each kernel's launches on its main path,
 max_abs_err, ms, plain_ms, the bound computed from the run's shapes
-and what sets it, and library_ms: null, no single PyTorch call
-computes any of these functions; for K1, K2 and K3 also their launches
-on the Python plane's pass, for K1 also on the mixer pass's two planes
+and what sets it, and library_ms: for K3 one conv2d call over the
+stacked planes, for the others null, no single PyTorch call computes
+their functions; for K1, K2 and K3 also their launches
+on the Python plane's pass, for K3 on snr8's, for K1 also on the mixer pass's two planes
 and on the eq, wide512 and tx passes, on the mesh phase's prod-1024
 bits and steady chains and on stream_map, for K4 on the mesh phase's
 soft fused chunk, for K5 on stream_map, for K2, K3 and K5 on wide512,
 one entry per K5 rate,
-for K3 its share of the bound; for K1, K2,
-K4, K5 and K6 also resident blocks
+for K3 its share of the bound, its time-major and subset times, the
+layout copies and wide-512's time; for K1, K2,
+K3, K4, K5 and K6 also resident blocks
 per SM, registers per thread and shared bytes per block at the main
 path's shape, for K2 dft_only_ms and for K6 empty_launch_ms), the
 nvidia-smi line, and last
@@ -475,13 +483,112 @@ def check_k1(dev, n_rows: int) -> dict:
     return res
 
 
+def k3_library(xr, xi, W, bmin: int, L: int, Mph: int, n_out: int):
+    """K3's function as one PyTorch call, the yardstick timed beside the
+    kernel (library_ms; the port never calls it): conv2d of the two
+    planes stacked as [2, 1, rows, C], padded once beforehand so that
+    row 0 is input row bmin, with W's Mph columns as filters [Mph, 1,
+    width, 1] at stride (L, 1): out[p, r, q, c] = y_p[q·Mph + r, c].
+    Returns (call, unpack): call() runs the convolution alone and
+    unpack(out) gives its ([n_out, C], [n_out, C]). n_out >= 1."""
+    import torch
+    import torch.nn.functional as F
+    C, width = xr.shape[1], W.shape[0]
+    nq = -(-n_out // Mph)
+    x = torch.stack([xr, xi])[:, None]
+    x = F.pad(x, (0, 0, -bmin, 0)) if bmin < 0 else x[:, :, bmin:]
+    x = F.pad(x, (0, 0, 0, max((nq - 1) * L + width - x.shape[2], 0)))
+    w = W.T[:, None, :, None].contiguous()
+
+    def unpack(out):
+        y = out[:, :, :nq].permute(0, 2, 1, 3).reshape(2, nq * Mph, C)
+        return y[0, :n_out], y[1, :n_out]
+
+    return (lambda: F.conv2d(x, w, stride=(L, 1))), unpack
+
+
+def k3_bound(n_in: int, c_sel: int, n_out: int) -> dict:
+    """K3: c_sel columns of both planes' rows in, [n_out, c_sel] x2 out;
+    per output and channel 8 live taps of a complex row (4 ops each)."""
+    return bound(8 * n_in * c_sel + 8 * n_out * c_sel,
+                 n_out * c_sel * 4 * 8, F32_FLOPS)
+
+
+def check_k3(dev, fe, yr, yi, subset_seed: int) -> dict:
+    """K3 on K2's rows (yr, yi) against its plain versions in both
+    layouts: time-major (resample_rows_plain), channel-major over all
+    channels and over a permuted half of them as int64 and int32
+    (resample_channels_plain); each within TOL x max|plain|. Times of
+    the kernel in each layout, of the plain versions, of the conv2d
+    yardstick (k3_library, checked against the plain version first) and
+    of the layout copies the front end made before K3 wrote
+    channel-major (the gather of the subset's columns and the two
+    transposes, `layout_copy_ms`)."""
+    import torch
+    from profile_torch_demod import cuda_ms
+    from tetra_tpu_torch.phy.pfb import (resample_channels_plain,
+                                         resample_rows, resample_rows_plain)
+    n_in, C = yr.shape
+    n_out = fe.n_out(n_in)
+    g = torch.Generator().manual_seed(subset_seed)
+    sub = torch.randperm(C, generator=g)[:max(C // 2, 1)].to(dev)
+    args = (fe.rs_taps, fe.rs_off, fe.W, fe.bmin, fe.L, fe.M, n_out)
+    plain = (fe.W, fe.bmin, fe.L, fe.M, n_out)
+    cases = {
+        "rows": (lambda: resample_rows(yr, yi, *args),
+                 lambda: resample_rows_plain(yr, yi, *plain), C),
+        "channels": (lambda: resample_rows(yr, yi, *args,
+                                           channel_major=True),
+                     lambda: resample_channels_plain(yr, yi, *plain), C),
+        "subset": (lambda: resample_rows(yr, yi, *args, channel_major=True,
+                                         channel_idx=sub),
+                   lambda: resample_channels_plain(yr, yi, *plain, sub),
+                   len(sub))}
+    sub32 = sub.to(torch.int32)
+    res = {"n_chan": C, "frames": n_in, "n_out": n_out,
+           "subset_channels": len(sub)}
+    worst = 0.0
+    for name, (kern, pl, c_sel) in cases.items():
+        want = pl()
+        d, s = rel_err(kern(), want)
+        if name == "subset":
+            d32, _ = rel_err(resample_rows(yr, yi, *args, channel_major=True,
+                                           channel_idx=sub32), want)
+            d = max(d, d32)
+        del want
+        b = k3_bound(n_in, c_sel, n_out)
+        ms = cuda_ms(kern)
+        res[name] = {"max_abs_err": d, "max_abs_plain": s, "ms": ms,
+                     "plain_ms": cuda_ms(pl, 2), "share_of_bound":
+                     b["bound_ms"] / ms, "bound": b}
+        worst = max(worst, d / s)
+    call, unpack = k3_library(yr, yi, fe.W, fe.bmin, fe.L, fe.M, n_out)
+    d, s = rel_err(unpack(call()), resample_rows_plain(yr, yi, *plain))
+    res["library"] = {"call": "torch.nn.functional.conv2d",
+                      "max_abs_err": d, "max_abs_plain": s,
+                      "ms": cuda_ms(call)}
+    worst = max(worst, d / s)
+    torch.cuda.empty_cache()
+    out_r, out_i = resample_rows(yr, yi, *args)
+    res["layout_copy_ms"] = {
+        "transposes": cuda_ms(lambda: (out_r.T.contiguous(),
+                                       out_i.T.contiguous())),
+        "subset_gather": cuda_ms(lambda: (yr[:, sub].contiguous(),
+                                          yi[:, sub].contiguous()))}
+    del out_r, out_i
+    res["within_tol"] = worst <= TOL
+    if not res["within_tol"]:
+        raise AssertionError(f"K3 or its yardstick outside tolerance: {res}")
+    return res
+
+
 def check_pfb(dev, n_chan: int, T: int, seed: int) -> dict:
-    """K2 and K3 vs their plain versions on Gaussian wideband noise."""
+    """K2 and K3 vs their plain versions on Gaussian wideband noise (K3
+    on K2's plain rows: check_k3)."""
     import torch
     from profile_torch_demod import cuda_ms
     from tetra_tpu_torch.phy.pfb import (PfbFrontEnd, pfb_channelize_rows,
-                                         pfb_channelize_rows_plain,
-                                         resample_rows, resample_rows_plain)
+                                         pfb_channelize_rows_plain)
     fe = PfbFrontEnd(n_chan, 25_000.0 * n_chan).to(dev)
     g = torch.Generator(device="cpu").manual_seed(seed)
     re = torch.randn(T, generator=g).to(dev)
@@ -491,13 +598,8 @@ def check_pfb(dev, n_chan: int, T: int, seed: int) -> dict:
     p2 = lambda: pfb_channelize_rows_plain(re, im, fe.h, n_chan, fe.J)
     yk, yp = k2(), p2()
     d2, s2 = rel_err(yk, yp)
+    del yk
     yr, yi = yp
-    n_out = fe.n_out(yr.shape[0])
-    k3 = lambda: resample_rows(yr, yi, fe.rs_taps, fe.rs_off, fe.W, fe.bmin,
-                               fe.L, fe.M, n_out)
-    p3 = lambda: resample_rows_plain(yr, yi, fe.W, fe.bmin, fe.L, fe.M,
-                                     n_out)
-    d3, s3 = rel_err(k3(), p3())
     frames = int(yr.shape[0])
     # the DFT stage alone, for reference: torch.fft.fft over the [M, C]
     # complex frames (it does not compute K2's function: no window, no
@@ -505,21 +607,25 @@ def check_pfb(dev, n_chan: int, T: int, seed: int) -> dict:
     z = torch.complex(yr, yi)
     dft_ms = cuda_ms(lambda: torch.fft.fft(z, dim=1))
     del z
-    b2 = k2_bound(n_chan, T, frames, fe.J)
-    # K3: per output sample and channel <= 8 live taps of a complex row
-    # (4 ops each)
-    b3 = bound(8 * frames * n_chan + 8 * n_out * n_chan,
-               n_out * n_chan * 4 * 8, F32_FLOPS)
     res = {"n_chan": n_chan, "samples": T, "frames": frames,
-           "k2_bound": b2, "k3_bound": b3,
-           "n_out": n_out,
+           "k2_bound": k2_bound(n_chan, T, frames, fe.J),
            "k2_max_abs_err": d2, "k2_max_abs_plain": s2,
-           "k3_max_abs_err": d3, "k3_max_abs_plain": s3,
-           "k2_ms": cuda_ms(k2), "k2_plain_ms": cuda_ms(p2),
-           "k2_dft_only_ms": dft_ms,
-           "k3_ms": cuda_ms(k3), "k3_plain_ms": cuda_ms(p3)}
-    if not (d2 <= TOL * s2 and d3 <= TOL * s3):
-        raise AssertionError(f"K2/K3 outside tolerance: {res}")
+           "k2_ms": cuda_ms(k2), "k2_plain_ms": cuda_ms(p2, 2),
+           "k2_dft_only_ms": dft_ms}
+    if not d2 <= TOL * s2:
+        raise AssertionError(f"K2 outside tolerance: {res}")
+    k3 = check_k3(dev, fe, yr, yi, seed)
+    # the front end's layout (channel-major over all channels) is K3's
+    # main-path entry
+    main = k3["channels"]
+    res.update({"k3": k3, "n_out": k3["n_out"],
+                "k3_max_abs_err": max(k3[k]["max_abs_err"]
+                                      for k in ("rows", "channels",
+                                                "subset")),
+                "k3_ms": main["ms"], "k3_plain_ms": main["plain_ms"],
+                "k3_bound": main["bound"],
+                "k3_share_of_bound": main["share_of_bound"],
+                "k3_library_ms": k3["library"]["ms"]})
     return res
 
 
@@ -2350,6 +2456,14 @@ WIDE_PHASE_BIT = 64               # slot grid after the PFB (group delay
                                   # compensated: the 36 kHz input's own)
 
 
+def wide_samples(n_slots: int) -> int:
+    """Wideband samples of bench stage 5's input at n_slots
+    (bench.py:201-205)."""
+    need = 64 + n_slots * 510 + 64
+    m_chan = int(need * 50_000.0 / 36_000.0) + 80
+    return (m_chan + 2 * 16) * (WIDE_CHAN // 2)
+
+
 def wide_step(wre, wim, inits, n_slots: int, phase_bit: int = 64):
     """Bench stage 5's composition: the 512-channel PFB to the demod
     rate (K2 + K3) feeding locked_step_ri(fast="pallas",
@@ -2388,9 +2502,7 @@ def run_wide512(dev, card: str) -> dict:
     res = {"channels": WIDE_CHAN, "fs": WIDE_FS, "card": card}
     times, planes = {}, {}
     for n_slots in (8, 168):
-        need = 64 + n_slots * 510 + 64
-        m_chan = int(need * 50_000.0 / 36_000.0) + 80
-        T = (m_chan + 2 * 16) * (WIDE_CHAN // 2)
+        T = wide_samples(n_slots)
         wre = rng.normal(0, 1, T).astype(np.float32)
         wim = rng.normal(0, 1, T).astype(np.float32)
         planes[n_slots] = (wre, wim)
@@ -2933,7 +3045,12 @@ def main() -> int:
         # plus its overlap-save history; CPU-test shapes: C = 8
         k23 = check_pfb(dev, N_CAR, 6_672_000, 1)
         emit({"phase": "kernels", "kernel": "K2+K3", **k23})
-        for n_chan, T, seed in ((8, 60_000, 2), (12, 30_000, 3)):
+        # wide-512's n_slots-168 step (run_wide512's input length), then
+        # ragged channel counts (K2's direct DFT at 12 and 1000)
+        k23w = check_pfb(dev, WIDE_CHAN, wide_samples(168), 4)
+        emit({"phase": "kernels", "kernel": "K2+K3 (wide-512)", **k23w})
+        for n_chan, T, seed in ((8, 60_000, 2), (12, 30_000, 3),
+                                (1000, 400_000, 5)):
             emit({"phase": "kernels", "kernel": "K2+K3",
                   **check_pfb(dev, n_chan, T, seed)})
 
@@ -3045,10 +3162,16 @@ def main() -> int:
         k1_occ = kernels.occupancy("tt_viterbi_assembled", 512, 3, 288)
         k4_occ = kernels.occupancy("tt_viterbi_segmented", 4, 288)
         k2_occ = kernels.occupancy("tt_pfb_wola", N_CAR)
+        # K3 at the plan of every front end (L 25, M 18, NT 8, width 31):
+        # channel-major on the main path, time-major for the record
+        k3_occ = kernels.occupancy("tt_resample_rows", 25, 18, 8, 31, 1)
+        k3_occ_rows = kernels.occupancy("tt_resample_rows", 25, 18, 8, 31,
+                                        0)
         k5_occ = kernels.occupancy("tt_demod_fused_sps", 2)
         k6_occ = kernels.occupancy("tt_viterbi_decode", 3, 112)
         emit({"phase": "occupancy", "K1": k1_occ, "K4": k4_occ,
-              "K2": k2_occ, "K5": k5_occ, "K6": k6_occ,
+              "K2": k2_occ, "K3": k3_occ, "K3_time_major": k3_occ_rows,
+              "K5": k5_occ, "K6": k6_occ,
               "K5_rates": {k: {f: v[f] for f in ("blocks_per_sm",
                                                  "regs_per_thread",
                                                  "smem_per_block")}
@@ -3122,11 +3245,20 @@ def main() -> int:
              "replaces": "tetra_tpu/phy/pfb_pallas.py:337",
              "launches": n_launch["resample_rows"],
              "python_plane_launches": p_launch["resample_rows"],
+             "snr8_launches": s_launch["resample_rows"],
              "wide512_launches": wide["launches"]["resample_rows"],
-             "max_abs_err": k23["k3_max_abs_err"],
+             "max_abs_err": max(k23["k3_max_abs_err"],
+                                k23w["k3_max_abs_err"]),
              "ms": k23["k3_ms"], "plain_ms": k23["k3_plain_ms"],
-             "share_of_bound": k23["k3_bound"]["bound_ms"] / k23["k3_ms"],
-             **k23["k3_bound"], "library_ms": None},
+             "share_of_bound": k23["k3_share_of_bound"],
+             "ms_time_major": k23["k3"]["rows"]["ms"],
+             "ms_subset": k23["k3"]["subset"]["ms"],
+             "layout_copy_ms": k23["k3"]["layout_copy_ms"],
+             "wide512_ms": k23w["k3_ms"],
+             "wide512_share_of_bound": k23w["k3_share_of_bound"],
+             "wide512_library_ms": k23w["k3_library_ms"],
+             **k23["k3_bound"], "library_ms": k23["k3_library_ms"],
+             "library_call": "torch.nn.functional.conv2d", **k3_occ},
             {"name": "viterbi_segmented", "route": "cuda",
              "source": "tetra_tpu_torch/csrc/viterbi_segmented.cu",
              "replaces": "tetra_tpu/ops/viterbi_pallas.py:967",

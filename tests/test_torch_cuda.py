@@ -267,11 +267,109 @@ def test_k2_k3_match_plain(n_chan, T):
     n_out = fe.n_out(yp[0].shape[0])
     if n_out == 0:
         return
-    ok_ = pfb.resample_rows(*yp, fe.rs_taps, fe.rs_off, fe.W, fe.bmin, fe.L,
-                            fe.M, n_out)
-    op = pfb.resample_rows_plain(*yp, fe.W, fe.bmin, fe.L, fe.M, n_out)
-    for a, b in zip(ok_, op):
-        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    k3_layouts_match_plain(fe, *yp, n_out, g)
+
+
+def k3_layouts_match_plain(fe, yr, yi, n_out, g):
+    """K3 on rows (yr, yi) within 1e-4 x max|plain| of its plain versions
+    in both layouts: time-major, channel-major over all channels, over a
+    random subset (int64) and over a permutation of all (int32); one
+    launch each."""
+    C = yr.shape[1]
+    args = (fe.rs_taps, fe.rs_off, fe.W, fe.bmin, fe.L, fe.M, n_out)
+    plain = (fe.W, fe.bmin, fe.L, fe.M, n_out)
+    perm = torch.randperm(C, generator=g)
+    cases = [(False, None), (True, None),
+             (True, perm[:max(C // 3, 1)].to(yr.device)),
+             (True, perm.to(torch.int32).to(yr.device))]
+    for cm, idx in cases:
+        n0 = pfb.resample_rows.launches
+        got = pfb.resample_rows(yr, yi, *args, channel_major=cm,
+                                channel_idx=idx)
+        assert pfb.resample_rows.launches == n0 + 1
+        want = (pfb.resample_channels_plain(yr, yi, *plain, idx) if cm
+                else pfb.resample_rows_plain(yr, yi, *plain))
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.is_contiguous()
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("C,n_in", [(3, 200), (1000, 700), (4096, 97),
+                                    (12, 9), (8, 31)])
+def test_k3_ragged_shapes(C, n_in):
+    """K3 alone on random rows: channel counts that fill no tile (3,
+    1000, 12), n_out 0 (no launch, empty outputs of the layout's shape),
+    short inputs and a stage tail."""
+    dev = cuda_device()
+    fe = pfb.PfbFrontEnd(8, 2e5).to(dev)
+    g = torch.Generator().manual_seed(C + n_in)
+    yr = torch.randn(n_in, C, generator=g).to(dev)
+    yi = torch.randn(n_in, C, generator=g).to(dev)
+    n_out = fe.n_out(n_in)
+    if n_out:
+        k3_layouts_match_plain(fe, yr, yi, n_out, g)
+        return
+    n0 = pfb.resample_rows.launches
+    for cm in (False, True):
+        a, b = pfb.resample_rows(yr, yi, fe.rs_taps, fe.rs_off, fe.W,
+                                 fe.bmin, fe.L, fe.M, 0, channel_major=cm)
+        assert a.shape == b.shape == ((C, 0) if cm else (0, C))
+    assert pfb.resample_rows.launches == n0
+
+
+def test_k3_rejects_bad_arguments():
+    dev = cuda_device()
+    fe = pfb.PfbFrontEnd(16, 400_000.0).to(dev)
+    x = torch.zeros(400, 16, device=dev)
+    args = (fe.rs_taps, fe.rs_off, fe.W, fe.bmin, fe.L, fe.M, 200)
+    idx = torch.arange(4, device=dev)
+    with pytest.raises(ValueError):
+        pfb.resample_rows(x, x[:300], *args)
+    with pytest.raises(TypeError):
+        pfb.resample_rows(x.double(), x.double(), *args)
+    with pytest.raises(ValueError):
+        pfb.resample_rows(x.T, x.T, *args)
+    with pytest.raises(ValueError):
+        pfb.resample_rows(x, x.cpu(), *args)
+    with pytest.raises(ValueError):
+        pfb.resample_rows(x, x, *args, channel_major=True,
+                          channel_idx=torch.tensor([0, 16], device=dev))
+    with pytest.raises(ValueError):
+        pfb.resample_rows(x, x, *args, channel_major=True,
+                          channel_idx=torch.tensor([-1, 3], device=dev))
+    with pytest.raises(ValueError):
+        pfb.resample_rows(x, x, *args, channel_major=True,
+                          channel_idx=idx.cpu())
+    with pytest.raises(TypeError):
+        pfb.resample_rows(x, x, *args, channel_major=True,
+                          channel_idx=idx.float())
+    with pytest.raises(ValueError):
+        pfb.resample_rows(x, x, *args, channel_idx=idx)
+
+
+@pytest.mark.parametrize("subset", [False, True])
+def test_front_end_runs_no_copy_between_k2_and_k3(subset):
+    """One pfb_to_demod_rate_ri call on the card launches K2 and then K3
+    (channel-major, reading the subset's columns in place) and no other
+    kernel: no gather, no transpose (torch.profiler kernel names)."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = cuda_device()
+    n_chan, fs = 64, 64 * 25_000.0
+    g = torch.Generator().manual_seed(7)
+    re = torch.randn(60_000, generator=g).to(dev)
+    im = torch.randn(60_000, generator=g).to(dev)
+    idx = (torch.tensor([5, 0, 3, 63, 17], device=dev) if subset else None)
+    want = pfb.pfb_to_demod_rate_ri(re, im, idx, n_chan, fs)   # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = pfb.pfb_to_demod_rate_ri(re, im, idx, n_chan, fs)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 2, names
+    assert "pfb_wola" in names[0] and "resample" in names[1], names
+    assert got[0].shape == (5 if subset else n_chan, want[0].shape[1])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_k2_rejects_bad_arguments():

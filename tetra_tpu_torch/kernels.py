@@ -47,8 +47,9 @@ _SIGNATURES = {
     "tt_empty_launch": [_P],
     "tt_pfb_wola": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "tt_pfb_wola_occupancy": [_I, _P],
-    "tt_resample_rows": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _I,
-                         _P],
+    "tt_resample_rows": [_P, _P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I,
+                         _I, _I, _I, _P, _P, _I, _P],
+    "tt_resample_rows_occupancy": [_I, _I, _I, _I, _I, _P],
     "tt_demod_fused": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I,
                        _P],
     "tt_demod_fused_sps_occupancy": [_I, _P],
@@ -135,8 +136,8 @@ def stream_ptr(device: torch.device) -> int:
 
 
 def occupancy(name: str, *args: int) -> dict:
-    """Launch shape of a kernel (K1, K2, K4, K5, K6; K5 at any rate as
-    "tt_demod_fused_sps" with the rate as argument) at the given
+    """Launch shape of a kernel (K1, K2, K3, K4, K5, K6; K5 at any rate
+    as "tt_demod_fused_sps" with the rate as argument) at the given
     arguments: the exported `<name>_occupancy` fills resident blocks per
     SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers per
     thread and shared bytes per block (cudaFuncGetAttributes plus the

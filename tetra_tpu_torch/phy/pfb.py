@@ -4,9 +4,10 @@ kernels of tetra_tpu.phy.pfb_pallas).
 A 2x-oversampled WOLA filterbank splits the wideband stream into all
 C channels at once (kernel K2, `pfb_channelize_rows`), and a rational
 polyphase resampler brings every channel from 2·fs/C to the 36 kHz
-demod rate (kernel K3, `resample_rows`). Both work on the time-major
-[frames, C] layout; only the decimated product is transposed to
-[channel, time]. Channels come out in natural order.
+demod rate (kernel K3, `resample_rows`). K2 writes time-major
+[frames, C] rows; K3 reads them (or a subset of their columns) in place
+and writes the decimated product channel-major, [channel, time], the
+layout the demods read. Channels come out in natural order.
 
 `pfb_channelize_ri` is the JAX package's XLA path (channel-major, the
 DFT as two real [C, C] matmuls), plain PyTorch with no kernel; it is
@@ -20,6 +21,7 @@ ends, inside the demod's start-up margin).
 from __future__ import annotations
 
 import functools
+import weakref
 
 import numpy as np
 import torch
@@ -32,7 +34,8 @@ from tetra_tpu_torch.phy.channelizer import DEMOD_RATE, _resample_block_plan
 __all__ = ["pfb_prototype", "_dft_matrices", "_twiddles", "_fft_plan",
            "pfb_channelize_ri", "PfbFrontEnd",
            "pfb_channelize_rows", "pfb_channelize_rows_plain",
-           "resample_rows", "resample_rows_plain", "pfb_to_demod_rate_ri"]
+           "resample_rows", "resample_rows_plain", "resample_channels_plain",
+           "pfb_to_demod_rate_ri"]
 
 
 @functools.lru_cache(maxsize=8)
@@ -228,13 +231,59 @@ def resample_rows_plain(xr, xi, W, bmin: int, L: int, Mph: int,
     return one(xr), one(xi)
 
 
+def resample_channels_plain(xr, xi, W, bmin: int, L: int, Mph: int,
+                            n_out: int, channel_idx=None):
+    """Plain PyTorch K3 in the channel-major layout: gather the columns
+    `channel_idx` (None = all), resample_rows_plain, transpose.
+    [n_in, C] -> [Csel, n_out] x2."""
+    if channel_idx is not None:
+        xr, xi = xr[:, channel_idx], xi[:, channel_idx]
+    out_r, out_i = resample_rows_plain(xr, xi, W, bmin, L, Mph, n_out)
+    return out_r.T.contiguous(), out_i.T.contiguous()
+
+
+# index tensors already found inside [0, C): id -> (weakref, version, C),
+# so that a caller passing the same tensor every chunk is checked once
+# (the check reads the values back, a device synchronisation)
+_checked_idx: dict = {}
+
+
+def _check_channel_idx(idx, dev, C: int) -> None:
+    if idx.device != dev:
+        raise ValueError(f"channel_idx must be on {dev}, got {idx.device}")
+    if idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"channel_idx must be int32 or int64, got "
+                        f"{idx.dtype}")
+    if idx.dim() != 1 or not idx.is_contiguous():
+        raise ValueError("channel_idx must be 1-D and contiguous")
+    key = id(idx)
+    hit = _checked_idx.get(key)
+    if hit is not None and hit[0]() is idx and hit[1:] == (idx._version, C):
+        return
+    if idx.numel():
+        lo, hi = (int(v) for v in torch.aminmax(idx))
+        if lo < 0 or hi >= C:
+            raise ValueError(f"channel_idx outside [0, {C}): {lo}..{hi}")
+    _checked_idx[key] = (weakref.ref(idx, lambda _, k=key:
+                                     _checked_idx.pop(k, None)),
+                         idx._version, C)
+
+
 def resample_rows(xr, xi, taps, off, W, bmin: int, L: int, Mph: int,
-                  n_out: int):
+                  n_out: int, channel_major: bool = False,
+                  channel_idx=None):
     """K3: time-major channel rows [n_in, C] x2 -> [n_out, C] x2 at the
-    demod rate. taps [Mph, NT] / off [Mph] are the live taps of W's
-    columns and their first input row (see PfbFrontEnd); rows outside
-    [0, n_in) read as zero."""
+    demod rate, or with channel_major the channels `channel_idx` (None =
+    all; int32 or int64) as [Csel, n_out] x2, the layout the demods
+    read. taps [Mph, NT] / off [Mph] are the live taps of W's columns
+    and their first input row (see PfbFrontEnd); rows outside [0, n_in)
+    read as zero."""
+    if channel_idx is not None and not channel_major:
+        raise ValueError("resample_rows: channel_idx needs channel_major")
     if xr.device.type == "cpu":
+        if channel_major:
+            return resample_channels_plain(xr, xi, W, bmin, L, Mph, n_out,
+                                           channel_idx)
         return resample_rows_plain(xr, xi, W, bmin, L, Mph, n_out)
     kernels.require_cuda(xr, "xr", torch.float32, 2)
     kernels.require_cuda(xi, "xi", torch.float32, 2)
@@ -243,12 +292,22 @@ def resample_rows(xr, xi, taps, off, W, bmin: int, L: int, Mph: int,
     if xi.shape != xr.shape or taps.shape[0] != Mph or off.shape[0] != Mph:
         raise ValueError("resample_rows: inconsistent shapes")
     n_in, C = xr.shape
-    yr = torch.empty((n_out, C), dtype=torch.float32, device=xr.device)
+    c_sel = C
+    if channel_idx is not None:
+        _check_channel_idx(channel_idx, xr.device, C)
+        c_sel = channel_idx.shape[0]
+    shape = (c_sel, n_out) if channel_major else (n_out, c_sel)
+    yr = torch.empty(shape, dtype=torch.float32, device=xr.device)
     yi = torch.empty_like(yr)
+    if n_out == 0 or c_sel == 0:
+        return yr, yi
     rc = kernels.lib().tt_resample_rows(
-        xr.data_ptr(), xi.data_ptr(), n_in, C, taps.data_ptr(),
-        off.data_ptr(), taps.shape[1], L, Mph, yr.data_ptr(), yi.data_ptr(),
-        n_out, kernels.stream_ptr(xr.device))
+        xr.data_ptr(), xi.data_ptr(), n_in, C,
+        None if channel_idx is None else channel_idx.data_ptr(),
+        int(channel_idx is not None and channel_idx.dtype == torch.int64),
+        c_sel, taps.data_ptr(), off.data_ptr(), taps.shape[1], L, Mph, bmin,
+        W.shape[0], int(channel_major), yr.data_ptr(), yi.data_ptr(), n_out,
+        kernels.stream_ptr(xr.device))
     kernels.check(rc, "tt_resample_rows")
     resample_rows.launches += 1
     return yr, yi
@@ -259,18 +318,19 @@ resample_rows.launches = 0
 
 def _live_taps(W: np.ndarray, bmin: int):
     """W [width, Mph] -> (taps [Mph, NT], off [Mph]): the nonzero span of
-    each column and the offset of its first row relative to q·L."""
-    cols = []
+    each column (NT the widest) and the offset of its first row relative
+    to q·L; a narrower column's span starts early enough that all NT
+    rows stay inside W's rows [bmin, bmin + width)."""
+    spans = []
     for r in range(W.shape[1]):
         nz = np.flatnonzero(W[:, r])
-        w0 = int(nz[0]) if len(nz) else 0
-        w1 = int(nz[-1]) + 1 if len(nz) else 1
-        cols.append((w0, W[w0:w1, r]))
-    NT = max(len(c) for _, c in cols)
+        spans.append((int(nz[0]), int(nz[-1]) + 1) if len(nz) else (0, 1))
+    NT = max(w1 - w0 for w0, w1 in spans)
     taps = np.zeros((W.shape[1], NT), np.float32)
     off = np.zeros(W.shape[1], np.int32)
-    for r, (w0, c) in enumerate(cols):
-        taps[r, :len(c)] = c
+    for r, (w0, _) in enumerate(spans):
+        w0 = min(w0, W.shape[0] - NT)
+        taps[r] = W[w0:w0 + NT, r]
         off[r] = bmin + w0
     return taps, off
 
@@ -316,14 +376,10 @@ class PfbFrontEnd(nn.Module):
         (out_re, out_im) [Csel, n_out]."""
         yr, yi = pfb_channelize_rows(re, im, self.h, self.twc, self.tws,
                                      self.n_chan, self.J)
-        if channel_idx is not None:
-            yr = yr[:, channel_idx].contiguous()
-            yi = yi[:, channel_idx].contiguous()
-        n_out = self.n_out(yr.shape[0])
-        out_r, out_i = resample_rows(yr, yi, self.rs_taps, self.rs_off,
-                                     self.W, self.bmin, self.L, self.M,
-                                     n_out)
-        return out_r.T.contiguous(), out_i.T.contiguous()
+        return resample_rows(yr, yi, self.rs_taps, self.rs_off, self.W,
+                             self.bmin, self.L, self.M,
+                             self.n_out(yr.shape[0]), channel_major=True,
+                             channel_idx=channel_idx)
 
 
 @functools.lru_cache(maxsize=8)

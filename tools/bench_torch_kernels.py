@@ -4,7 +4,7 @@ and the steady-4096 pass of one checkout on the card, for comparing two
 trees in one session.
 
     python3 tools/bench_torch_kernels.py [--repo PATH] [--reps N]
-                                         [--no-steady]
+                                         [--no-steady] [--only k3]
 
 --repo names the checkout whose `tetra_tpu_torch` is imported and built
 (default: the one holding this script), so that a parent tree unpacked
@@ -27,6 +27,9 @@ parent in one call. Prints one JSON line:
 - K2 (`pfb_channelize_rows`) at the prod-1024 shape: C 1024 on
   6,672,000 samples of Gaussian noise (one chunk and its overlap-save
   history), and `torch.fft.fft` over the [M, C] complex frames alone;
+- with `--only k3`, nothing but K3 and the front end's span after K2 at
+  the prod-1024 and wide-512 shapes, and wide-512's step (`k3` and
+  `wide512_step` below);
 - K5 at the steady shape [4096, 32,768] (the clean steady capture):
   `demod_fused` (the kernel's launch) and `demodulate_hard_ri_pallas`
   (the wrapper the steady chain calls), and K7's stage bisect
@@ -205,6 +208,89 @@ def k2(dev, cs, kernels, reps: int) -> dict:
             "occupancy": occupancy(kernels, "tt_pfb_wola", n_chan)}
 
 
+def k3(dev, cs, kernels, reps: int) -> dict:
+    """K3 and the front end's span after K2 at prod-1024's chunk (C 1024,
+    6,672,000 samples) and wide-512's n_slots-168 step (C 512): K2's
+    rows, K3 time-major (the call both trees have), the whole front end
+    (`pfb_to_demod_rate_ri`, [C, T_out] x2, over all channels and over a
+    permuted half as int64) and K2 alone; `after_k2_ms` = front end - K2
+    is what K3 and any layout copies cost the front end."""
+    import torch
+    from profile_torch_demod import cuda_ms
+    from tetra_tpu_torch.phy.pfb import (PfbFrontEnd, pfb_channelize_rows,
+                                         pfb_to_demod_rate_ri, resample_rows)
+    res = {}
+    for name, n_chan, T in (("prod", 1024, 6_672_000),
+                            ("wide512", 512, cs.wide_samples(168))):
+        fs = 25_000.0 * n_chan
+        fe = PfbFrontEnd(n_chan, fs).to(dev)
+        g = torch.Generator().manual_seed(n_chan)
+        re = torch.randn(T, generator=g).to(dev)
+        im = torch.randn(T, generator=g).to(dev)
+        sub = torch.randperm(n_chan, generator=g)[:n_chan // 2].to(dev)
+        k2 = lambda: pfb_channelize_rows(re, im, fe.h, fe.twc, fe.tws,
+                                         n_chan, fe.J)
+        yr, yi = k2()
+        n_out = fe.n_out(yr.shape[0])
+        rows = lambda: resample_rows(yr, yi, fe.rs_taps, fe.rs_off, fe.W,
+                                     fe.bmin, fe.L, fe.M, n_out)
+        front = lambda: pfb_to_demod_rate_ri(re, im, None, n_chan, fs)
+        front_sub = lambda: pfb_to_demod_rate_ri(re, im, sub, n_chan, fs)
+        r = {"n_chan": n_chan, "samples": T, "frames": int(yr.shape[0]),
+             "n_out": n_out, "k2_ms": cuda_ms(k2, reps),
+             "k3_time_major_ms": cuda_ms(rows, reps),
+             "k3_time_major_device_ms": device_ms(rows, reps, "resample"),
+             "front_end_ms": cuda_ms(front, reps),
+             "front_end_device_ms": device_ms(front, reps, ""),
+             "front_end_subset_ms": cuda_ms(front_sub, reps),
+             "k3_in_front_end_device_ms": device_ms(front, reps, "resample"),
+             "k3_bound": cs.k3_bound(int(yr.shape[0]), n_chan, n_out),
+             "occupancy": occupancy(kernels, "tt_resample_rows", 25, 18, 8,
+                                    31, 1)}
+        r["after_k2_ms"] = r["front_end_ms"] - r["k2_ms"]
+        res[name] = r
+        del yr, yi, re, im
+        torch.cuda.empty_cache()
+    res["wide512_step"] = wide512_step(dev, cs, reps)
+    return res
+
+
+def wide512_step(dev, cs, reps: int) -> dict:
+    """wide-512's step as chip_smoke.py's wide512 phase times it: the
+    bench's Gaussian noise (default_rng(1)) at n_slots 8 and 168 through
+    chip_smoke.wide_step (the 512-channel front end, K2 + K3, into
+    locked_step_ri), median of `reps` passes each after a warm one, and
+    the differential samples per second."""
+    import numpy as np
+    import torch
+    from tetra_tpu_torch import steady_fixture as sf
+    inits = torch.full((cs.WIDE_CHAN,), sf.load()["init"],
+                       dtype=torch.int64, device=dev)
+    rng = np.random.default_rng(1)
+    res = {}
+    for n_slots in (8, 168):
+        T = cs.wide_samples(n_slots)
+        a = torch.as_tensor(rng.normal(0, 1, T).astype(np.float32),
+                            device=dev)
+        b = torch.as_tensor(rng.normal(0, 1, T).astype(np.float32),
+                            device=dev)
+        cs.wide_step(a, b, inits, n_slots)
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = cs.wide_step(a, b, inits, n_slots)
+            int(out["crc_ok"].sum())
+            ts.append(time.perf_counter() - t0)
+        res[str(n_slots)] = {"samples": T, "step_s": ts,
+                             "median_s": float(np.median(ts))}
+        del a, b, out
+    d = res["168"]["samples"] - res["8"]["samples"]
+    res["samples_per_s"] = d / (res["168"]["median_s"]
+                                - res["8"]["median_s"])
+    return res
+
+
 def k5(dev, cs, kernels, re, im, reps: int) -> dict:
     """K5 at the steady shape: its launch alone and the steady chain's
     wrapper; then K7's stage bisect."""
@@ -260,6 +346,9 @@ def main() -> int:
     ap.add_argument("--repo", default=str(ROOT))
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--no-steady", action="store_true")
+    ap.add_argument("--only", choices=("k3",),
+                    help="time only this kernel (k3: K3 and the front end "
+                         "after K2)")
     args = ap.parse_args()
     repo = pathlib.Path(args.repo).resolve()
     sys.path[:0] = [str(repo), str(HERE)]
@@ -279,8 +368,12 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.lib()
     res = {"repo": str(repo), "card": cs.smi(),
-           "build_s": time.perf_counter() - t0, "k1": {}, "k4": {},
-           "k6": k6(dev, cs, kernels, args.reps)}
+           "build_s": time.perf_counter() - t0}
+    if args.only == "k3":
+        res["k3"] = k3(dev, cs, kernels, args.reps)
+        print(json.dumps(res), flush=True)
+        return 0
+    res.update({"k1": {}, "k4": {}, "k6": k6(dev, cs, kernels, args.reps)})
     for rows in (20_000, 262_144):
         for name, code, x, tab, rm in k1_cases(dev, rows):
             n = rows
