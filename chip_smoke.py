@@ -116,6 +116,17 @@ Phases (one JSON line each):
               capture (prod_fixture.soft_record), and K1..K4 launched by
               the timed run; the 5 carriers with the fewest CRC-OK
               blocks and the 5 with the most CRC errors are listed.
+     kernels  S1 (the burst synchroniser's step loop, csrc/sync_scan.cu)
+              against sync_scan_plain on the card: the sync_scan calls
+              of the prod and snr8 warm passes (recorded: the ring plus
+              each chunk, tol 0 and 2), mixer-64's MultiSync.scan calls
+              of its warm Python-plane pass replayed through S1 and
+              through the plain version, and sync_case's edge inputs
+              (B 1, 3 and 4097, tol 0 and 2): every OUT_KEYS plane and
+              the carry equal bit for bit; times of the whole call, the
+              next-match maps, S1 alone and the plain version on prod's
+              and snr8's last chunk. S1 must be launched by the prod,
+              snr8, python_plane, mixer (both planes) and mesh passes.
   7. kernels  K5 (fused hard demod: bits of the picked phase, the pick,
               the metric sums) against its plain version at the steady
               chain's shape [4096, 32,768] (half the carriers with AWGN
@@ -202,15 +213,20 @@ and on the eq, wide512 and tx passes, on the mesh phase's prod-1024
 bits and steady chains and on stream_map, for K4 on the mesh phase's
 soft fused chunk, for K5 on stream_map, for K2, K3 and K5 on wide512,
 one entry per K5 rate,
+for S1 (sync_scan) its launches per call and on the snr8, Python-plane,
+mixer and mesh passes, the maps' and S1's own times, and library_ms
+null with the reason (no PyTorch call computes this state machine),
 for K3 its share of the bound, its time-major and subset times, the
 layout copies and wide-512's time; for K1, K2,
-K3, K4, K5 and K6 also resident blocks
+K3, K4, K5, K6 and S1 also resident blocks
 per SM, registers per thread and shared bytes per block at the main
 path's shape, for K2 dft_only_ms and for K6 empty_launch_ms), the
 nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits nonzero without that line when
 there is no card, the build fails, or any check fails.
 """
+import contextlib
+import functools
 import json
 import math
 import pathlib
@@ -218,6 +234,7 @@ import subprocess
 import sys
 import time
 import traceback
+from unittest import mock
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tools"))
 
@@ -343,6 +360,230 @@ def slot_batch(n_rows: int, dev, seed: int = 1):
     return (torch.as_tensor(sl, device=dev),
             torch.as_tensor(kd, device=dev))
 
+
+
+# S1's function (a sync_scan call) at its least, for its bound: each
+# locked column's match at every position as a bit-sliced packed compare
+# (32 positions a word; per sequence bit a funnel shift and one logic op
+# folding it into the match word at tol 0, a second logic op for the
+# two-bit saturating error count at tol 1..2), and per carrier and step
+# the ring clamp and append 6, the KNOW_FSTART hand-over 7, per column
+# the next set bit of its match word from the window start 4, the
+# polluted-prefix visibility 5 and the fit 2 (33 for three), the
+# acquisition 8, the key and column 12, the offsets and the bad, lost
+# and emit flags 16, the tolerant override 6 and the carry's advance 8
+SYNC_SEQ_BIT_OPS = {0: 2, 1: 3, 2: 3}
+SYNC_STEP_OPS = 6 + 7 + 3 * (4 + 5 + 2) + 8 + 12 + 16 + 6 + 8
+SYNC_CARRY = ("state", "buf_start", "nbuf", "nfs", "slot_index")
+
+
+def sync_case(B: int, steps: int, seed: int, dev, n_kf: int = 7):
+    """Inputs of one sync_scan call at B carriers and `steps` feed quanta:
+    bits [B, 4096 + 64 * steps] int8 cut from the production rows
+    (prod_fixture's plain and encrypted rows, alternating), each carrier
+    at its own offset, with 2e-3 random bit flips and a 600-bit garbage
+    span at a random place; the carry zero except every n_kf-th carrier
+    in KNOW_FSTART with its frame start before its buffer start (every
+    2·n_kf-th at -1). Returns (bits, carry tuple of five int32 [B]) on
+    dev."""
+    import numpy as np
+    import torch
+    from tetra_tpu_torch import prod_fixture
+    fx = prod_fixture.load()
+    rows = np.stack([fx["plain"], fx["enc"]]).astype(np.int8)
+    L = 4096 + 64 * steps
+    rng = np.random.default_rng(seed)
+    start = rng.integers(0, rows.shape[1] - L, B)
+    pos = start[:, None] + np.arange(L)
+    bits = rows[(np.arange(B) % 2)[:, None], pos]
+    bits ^= (rng.random((B, L), dtype=np.float32) < 2e-3).astype(np.int8)
+    g0 = rng.integers(0, L - 600, B)
+    bits[np.arange(B)[:, None], g0[:, None] + np.arange(600)] = \
+        rng.integers(0, 2, (B, 600), dtype=np.int8)
+    carry = np.zeros((5, B), np.int32)
+    kf = np.arange(B) % n_kf == n_kf - 1
+    carry[0, kf] = 1
+    carry[1, kf] = 700
+    carry[2, kf] = 1500
+    carry[3, kf] = 300
+    carry[3, np.arange(B) % (2 * n_kf) == 2 * n_kf - 1] = -1
+    return (torch.as_tensor(bits, device=dev),
+            tuple(torch.as_tensor(c, device=dev) for c in carry))
+
+
+def sync_args(args, kwargs) -> dict:
+    """A sync_scan call's arguments by name, defaults filled in."""
+    import inspect
+    from tetra_tpu_torch.phy import sync_vec as sv
+    b = inspect.signature(sv.sync_scan_plain).bind(*args, **kwargs)
+    b.apply_defaults()
+    return dict(b.arguments)
+
+
+def sync_compare(args, kwargs) -> dict:
+    """sync_scan (S1 on a card) against sync_scan_plain on the same
+    inputs: the OUT_KEYS planes (values and type), the carry and fed
+    that differ, and the largest absolute difference of any of them."""
+    import torch
+    from tetra_tpu_torch.phy import sync_vec as sv
+    (*kc, kfed), ko = sv.sync_scan(*args, **kwargs)
+    (*pc, pfed), po = sv.sync_scan_plain(*args, **kwargs)
+    pairs = [(k, ko[k], po[k]) for k in sv.OUT_KEYS] \
+        + list(zip(SYNC_CARRY, kc, pc))
+    differ = [k for k, a, b in pairs
+              if a.dtype != b.dtype or a.shape != b.shape
+              or not torch.equal(a, b)]
+    err = max((float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+               for _, a, b in pairs if a.numel() and a.shape == b.shape),
+              default=0.0)
+    if kfed != pfed:
+        differ.append("fed")
+    a = sync_args(args, kwargs)
+    return {"carriers": int(a["bits"].shape[0]),
+            "window_bits": int(a["bits"].shape[1]), "steps": a["steps"],
+            "tol": a["tol"], "differ": differ, "max_abs_err": err,
+            "emitted": int(ko["emit"].sum())}
+
+
+def sync_bound(B: int, L: int, steps: int, tol: int) -> dict:
+    """S1's function (a sync_scan call) at B carriers, window L, `steps`
+    steps and tolerance tol: bits read once (1 B each), the carry read
+    and written (40 B a carrier), the ten planes written once (25 B a
+    carrier and step); int32 operations (SYNC_SEQ_BIT_OPS and
+    SYNC_STEP_OPS above: no f32 work is needed) at INT32_OPS."""
+    from tetra_tpu_torch.phy.burst import LOCKED_COLS
+    from tetra_tpu_torch.phy.sync import _SEQ_LEN
+    match_ops = SYNC_SEQ_BIT_OPS[tol] * sum(_SEQ_LEN[c] for c in LOCKED_COLS) \
+        * B * L / 32
+    return {**bound(B * L + 40 * B + 25 * B * steps,
+                    match_ops + SYNC_STEP_OPS * B * steps, INT32_OPS),
+            "bound_match_ops": match_ops}
+
+
+def sync_times(args, kwargs) -> dict:
+    """CUDA-event times of one sync_scan call (mean of 10 after a warm-up;
+    the plain version's of 2): the whole call on the card (next-match
+    maps + S1), the maps alone, S1 alone, sync_scan_plain; S1's launches
+    in one call; the bound."""
+    import torch
+    from profile_torch_demod import cuda_ms
+    from tetra_tpu_torch.phy import sync_vec as sv
+    a = sync_args(args, kwargs)
+    bits, steps, feed, tol = a["bits"], a["steps"], a["feed"], a["tol"]
+    carry = torch.stack([a[k].to(torch.int32) for k in
+                         ("state0", "buf_start0", "nbuf0", "nfs0", "slot0")])
+    nm = sv.next_match_maps(bits, tol)
+    before = sv.sync_scan.launches
+    sv.sync_scan(*args, **kwargs)
+    per_call = sv.sync_scan.launches - before
+    B, L = bits.shape
+    return {"carriers": B, "window_bits": L, "steps": steps, "tol": tol,
+            "launches_per_call": per_call,
+            "ms": cuda_ms(lambda: sv.sync_scan(*args, **kwargs)),
+            "maps_ms": cuda_ms(lambda: sv.next_match_maps(bits, tol)),
+            "steps_kernel_ms": cuda_ms(lambda: sv.sync_steps(
+                bits, nm, carry, steps, feed, tol)),
+            "plain_ms": cuda_ms(lambda: sv.sync_scan_plain(*args, **kwargs),
+                                2),
+            **sync_bound(B, L, steps, tol)}
+
+
+@contextlib.contextmanager
+def recording(owner, attr: str, calls: list):
+    """Replace owner.attr by a wrapper that records every call's
+    (args, kwargs), tensors cloned and numpy arrays copied, into `calls`
+    and passes it through; restore it on exit."""
+    import numpy as np
+    import torch
+    fn = getattr(owner, attr)
+    snap = lambda v: (v.clone() if isinstance(v, torch.Tensor) else
+                      v.copy() if isinstance(v, np.ndarray) else v)
+
+    @functools.wraps(fn)
+    def rec(*args, **kwargs):
+        calls.append((tuple(map(snap, args)),
+                      {k: snap(v) for k, v in kwargs.items()}))
+        return fn(*args, **kwargs)
+    setattr(owner, attr, rec)
+    try:
+        yield calls
+    finally:
+        setattr(owner, attr, fn)
+
+
+def multisync_replay(dev, calls: list) -> dict:
+    """The MultiSync.scan calls of a Python-plane pass (recorded with the
+    instance as first argument) replayed into two fresh MultiSyncs on the
+    card per instance, one through S1 and one with sync_scan_plain in
+    its place: every call's slots and events, and the final carries,
+    must be equal."""
+    import numpy as np
+    from tetra_tpu_torch.phy import sync_vec as sv
+    by_inst: dict = {}
+    for (inst, *rest), kw in calls:
+        by_inst.setdefault(id(inst), (inst, []))[1].append((rest, kw))
+    n_calls = n_slots = n_events = 0
+    differ = []
+    for inst, seq in by_inst.values():
+        mk = sv.MultiSync(inst.n, inst.feed, device=dev)
+        mp = sv.MultiSync(inst.n, inst.feed, device=dev)
+        for i, (rest, kw) in enumerate(seq):
+            got = mk.scan(*rest, **kw)
+            with mock.patch.object(sv, "sync_scan", sv.sync_scan_plain):
+                want = mp.scan(*rest, **kw)
+            n_calls += 1
+            n_slots += sum(map(len, got[0]))
+            n_events += sum(map(len, got[1]))
+            if got != want:
+                differ.append(i)
+        if any(not np.array_equal(getattr(mk.carry, f), getattr(mp.carry, f))
+               for f in ("state", "buf_start", "bits_in_buf", "nfs",
+                         "slot_index")) or mk.carry.fed != mp.carry.fed:
+            differ.append("carry")
+    return {"instances": len(by_inst), "calls": n_calls, "slots": n_slots,
+            "events": n_events, "calls_differing": differ}
+
+
+
+def check_sync(dev, prod_calls: list, snr8_calls: list,
+               mixer_calls: list) -> dict:
+    """S1 (csrc/sync_scan.cu) against sync_scan_plain on the card, on the
+    sync_scan calls of a prod-1024 pass (4 chunks: the ring plus each
+    chunk, hard, tol 0) and of an snr8-1024 pass (its soft window as
+    soft < 0, tol 2), every OUT_KEYS plane and the carry equal bit for
+    bit; mixer-64's MultiSync.scan calls of a Python-plane pass
+    replayed through S1 and through the plain version, the same slots,
+    events and carries; the synthetic edge inputs of sync_case at B 1,
+    3 and 4097 with tol 0 and 2. Times of the last chunk's call (the
+    largest window with a running carry) at both passes."""
+    res = {"library_ms": None,
+           "library_reason": "no PyTorch call computes this state machine"}
+    bad = []
+    for name, calls in (("prod", prod_calls), ("snr8", snr8_calls)):
+        if not calls:
+            raise AssertionError(f"S1: no sync_scan call of {name} recorded")
+        per = [sync_compare(a, k) for a, k in calls]
+        res[name] = {"calls": per, **sync_times(*calls[-1])}
+        bad += [f"{name}[{i}]: {p['differ']}" for i, p in enumerate(per)
+                if p["differ"]]
+    res["mixer"] = multisync_replay(dev, mixer_calls)
+    if res["mixer"]["calls_differing"] or not res["mixer"]["calls"]:
+        bad.append(f"mixer: {res['mixer']}")
+    edge = []
+    for B, steps, seed in ((1, 146, 11), (3, 37, 12), (4097, 146, 13)):
+        bits, carry = sync_case(B, steps, seed, dev)
+        for tol in (0, 2):
+            edge.append(sync_compare((bits, *carry, 0, steps),
+                                     {"tol": tol}))
+    res["edge"] = edge
+    bad += [f"edge {e['carriers']} tol {e['tol']}: {e['differ']}"
+            for e in edge if e["differ"]]
+    res["max_abs_err"] = max(p["max_abs_err"] for p in
+                             res["prod"]["calls"] + res["snr8"]["calls"]
+                             + edge)
+    if bad:
+        raise AssertionError(f"S1 differs from sync_scan_plain: {bad}")
+    return res
 
 def restart_subsets(B: int, nb: int, dev):
     """rmask [B, nb] int8 cycling through every subset of the restarts."""
@@ -1254,7 +1495,8 @@ def mixer_split(dev, u8, offsets, fs: float) -> dict:
             "pass_ms_est": chunk_ms * (len(u8) // 2) / new}
 
 
-def run_mixer(ks_path: str, dev, fx: dict, fxm: dict, card: str):
+def run_mixer(ks_path: str, dev, fx: dict, fxm: dict, card: str,
+              record: list | None = None):
     """mixer-64, the live CLI end to end at full width: a mock rtl_tcp
     server process serves the 64-carrier off-grid u8 capture
     (prod_fixture.mixer_capture, 1.8 MS/s, 1.0346 s), and
@@ -1265,10 +1507,12 @@ def run_mixer(ks_path: str, dev, fx: dict, fxm: dict, card: str):
     and cell equal the JAX mixer record, the 4 log digests equal, the
     Python plane equals the native plane, K1 launched on both; the
     Python pass's host split (utils.trace pyplane.*) and a profiled
-    native pass's device busy time and idle share (torch.profiler).
-    Returns (the phase's record, the u8 capture)."""
+    native pass's device busy time and idle share (torch.profiler). The
+    warm Python-plane pass's MultiSync.scan calls go into `record`, if
+    given. Returns (the phase's record, the u8 capture)."""
     from profile_torch_prod import device_profile
     from tetra_tpu_torch import prod_fixture as P
+    from tetra_tpu_torch.phy.sync_vec import MultiSync
     from tetra_tpu_torch.utils import trace
     t0 = time.perf_counter()
     bits = P.mixed_bits(P.MIXER_CARRIERS, 0.1, fx)[0][fxm["mixer_rows"]]
@@ -1283,7 +1527,10 @@ def run_mixer(ks_path: str, dev, fx: dict, fxm: dict, card: str):
            "stream_s": stream_s, "capture_build_s": build_s, "card": card}
     got = {}
     for plane in ("python", "native"):
-        _, warm, _ = mixer_cli(u8, P.MIXER_FS, carriers, ks_path, plane, dev)
+        calls = [] if record is None or plane != "python" else record
+        with recording(MultiSync, "scan", calls):
+            _, warm, _ = mixer_cli(u8, P.MIXER_FS, carriers, ks_path, plane,
+                                   dev)
         logs = {c: [] for c in P.MIXER_LOG_CHANNELS}
         log = ([P.line_logger(logs[c]) if c in logs else (lambda *a: None)
                 for c in range(len(offsets))] if plane == "python" else None)
@@ -1329,6 +1576,7 @@ def run_mixer(ks_path: str, dev, fx: dict, fxm: dict, card: str):
           and all(not res[p]["carriers_differing_from_jax"]
                   and res[p]["mixer_front_end"]
                   and res[p]["launches"]["viterbi_assembled"] > 0
+                  and res[p]["launches"]["sync_scan"] > 0
                   for p in ("python", "native"))
           and all(res["python"]["log_digests_equal_jax"].values()))
     if not ok:
@@ -1528,7 +1776,7 @@ def run_python_plane(ks_path: str, packed, fx: dict, native, dev,
         raise AssertionError(f"python_plane: differs from the JAX Python "
                              f"plane's record: {jax_py}")
     if min(n_launch[k] for k in ("viterbi_assembled", "pfb_wola",
-                                 "resample_rows")) <= 0:
+                                 "resample_rows", "sync_scan")) <= 0:
         raise AssertionError(f"python_plane: a kernel was not launched: "
                              f"{n_launch}")
     return res
@@ -1693,22 +1941,24 @@ def check_soft_small(dev) -> dict:
     return res
 
 
-def run_snr8(dev, card: str) -> dict:
-    """The 1024-carrier snr8 stage through the soft receiver: warm pass,
-    then a timed pass with the launch counts set to 0 just before it.
+def run_snr8(dev, card: str, record: list | None = None) -> dict:
+    """The 1024-carrier snr8 stage through the soft receiver: warm pass
+    (its sync_scan calls recorded into `record`, if given), then a timed
+    pass with the launch counts set to 0 just before it.
     The stats of the 16 carriers the fixture records must equal the JAX
     soft path's (prod_fixture.soft_record); the 5 carriers with the
     fewest CRC-OK blocks and the 5 with the most CRC errors are listed
     (the record's carriers were chosen from these lists)."""
     import numpy as np
-    from tetra_tpu_torch import prod_fixture
+    from tetra_tpu_torch import fastpath, prod_fixture
     t0 = time.perf_counter()
     fx = prod_fixture.load_snr8()
     packed = prod_fixture.snr8_capture(N_CAR, fx)
     T_bits = len(fx["row"])
     build_s = time.perf_counter() - t0
-    _, warm_s = prod_fixture.run_receiver(packed, N_CAR, None, dev,
-                                          N_CHUNKS, "soft")
+    with recording(fastpath, "sync_scan", [] if record is None else record):
+        _, warm_s = prod_fixture.run_receiver(packed, N_CAR, None, dev,
+                                              N_CHUNKS, "soft")
     reset_launches()
     mrx, wall = prod_fixture.run_receiver(packed, N_CAR, None, dev,
                                           N_CHUNKS, "soft")
@@ -1737,7 +1987,8 @@ def run_snr8(dev, card: str) -> dict:
            "fewest_crc_ok": worst(1, 1), "most_crc_wrong": worst(2, -1),
            "launches": n_launch}
     if min(n_launch[k] for k in ("viterbi_assembled", "pfb_wola",
-                                 "resample_rows", "viterbi_segmented")) <= 0:
+                                 "resample_rows", "viterbi_segmented",
+                                 "sync_scan")) <= 0:
         raise AssertionError(f"a kernel was not launched: {n_launch}")
     if crc_ok < 0.90 * CLEAN_CRC_OK or crc_err > 2 * jax_rec["crc_err"]:
         raise AssertionError(f"snr8 decode outside its limits: {res}")
@@ -2898,8 +3149,10 @@ def run_mesh(ks_path: str, dev, card: str, fx: dict) -> dict:
             or prod["carriers_equal_one_process"] != N_CAR
             or not prod["tl_sdus_equal_one_process"] or events != want):
         raise AssertionError(f"mesh prod-1024 bits: {prod}")
-    if prod["launches"]["viterbi_assembled"] <= 0:
-        raise AssertionError("mesh prod-1024 bits: K1 not launched")
+    if min(prod["launches"][k] for k in ("viterbi_assembled",
+                                         "sync_scan")) <= 0:
+        raise AssertionError(f"mesh prod-1024 bits: a kernel was not "
+                             f"launched: {prod['launches']}")
     del mc, sink, sink_mesh
 
     # 2. the soft fused chunk against the one-process run
@@ -3020,7 +3273,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
         return 2
     try:
-        from tetra_tpu_torch import kernels, prod_fixture
+        from tetra_tpu_torch import fastpath, kernels, prod_fixture
         from tetra_tpu_torch.device import resolve_device
     except ImportError as e:
         print(f"chip_smoke: the tetra_tpu_torch package is missing ({e})",
@@ -3065,7 +3318,9 @@ def main() -> int:
                   **check_python_small(ks_path, dev, fx)})
             fxm = prod_fixture.load_mixer()
             emit({"phase": "mixer_small", **check_mixer_small(dev, fxm)})
-            mixer, mixer_u8 = run_mixer(ks_path, dev, fx, fxm, card)
+            mixer_calls = []
+            mixer, mixer_u8 = run_mixer(ks_path, dev, fx, fxm, card,
+                                        mixer_calls)
             emit({"phase": "mixer", **mixer})
             emit({"phase": "scan", **check_scan(dev, fxm, mixer_u8)})
             del mixer_u8
@@ -3078,8 +3333,10 @@ def main() -> int:
                   "encrypted": n_enc, "bits_per_carrier": T_bits,
                   "wideband_samples": int(len(packed)),
                   "build_s": time.perf_counter() - t0})
-            _, warm_s = prod_fixture.run_receiver(packed, N_CAR, ks_path,
-                                                  dev, N_CHUNKS)
+            prod_calls = []
+            with recording(fastpath, "sync_scan", prod_calls):
+                _, warm_s = prod_fixture.run_receiver(packed, N_CAR, ks_path,
+                                                      dev, N_CHUNKS)
             reset_launches()
             mrx, wall = prod_fixture.run_receiver(packed, N_CAR, ks_path,
                                                   dev, N_CHUNKS)
@@ -3115,7 +3372,7 @@ def main() -> int:
             raise AssertionError("per-carrier stats differ from the JAX "
                                  "wideband record")
         if min(n_launch[k] for k in ("viterbi_assembled", "pfb_wola",
-                                     "resample_rows")) <= 0:
+                                     "resample_rows", "sync_scan")) <= 0:
             raise AssertionError(f"a kernel was not launched: {n_launch}")
         emit({"phase": "voice", **voice})
         emit({"phase": "python_plane", **pyplane})
@@ -3124,9 +3381,15 @@ def main() -> int:
         emit({"phase": "kernels", "kernel": "K6", **k6})
 
         emit({"phase": "soft_small", **check_soft_small(dev)})
-        snr8 = run_snr8(dev, card)
+        snr8_calls = []
+        snr8 = run_snr8(dev, card, snr8_calls)
         emit({"phase": "snr8", **snr8})
         s_launch = snr8["launches"]
+        s1 = check_sync(dev, prod_calls, snr8_calls, mixer_calls)
+        s1["launches_per_pass"] = {"prod": n_launch["sync_scan"],
+                                   "snr8": s_launch["sync_scan"]}
+        emit({"phase": "kernels", "kernel": "S1", **s1})
+        del prod_calls, snr8_calls, mixer_calls
 
         from profile_torch_demod import stage_times
         re, im, noisy = noisy_steady(dev)
@@ -3169,9 +3432,10 @@ def main() -> int:
                                         0)
         k5_occ = kernels.occupancy("tt_demod_fused_sps", 2)
         k6_occ = kernels.occupancy("tt_viterbi_decode", 3, 112)
+        s1_occ = kernels.occupancy("tt_sync_scan")
         emit({"phase": "occupancy", "K1": k1_occ, "K4": k4_occ,
               "K2": k2_occ, "K3": k3_occ, "K3_time_major": k3_occ_rows,
-              "K5": k5_occ, "K6": k6_occ,
+              "K5": k5_occ, "K6": k6_occ, "S1": s1_occ,
               "K5_rates": {k: {f: v[f] for f in ("blocks_per_sm",
                                                  "regs_per_thread",
                                                  "smem_per_block")}
@@ -3296,7 +3560,34 @@ def main() -> int:
              "max_abs_err": float(k7["max_abs_err"]),
              "ms": k7["ms"]["4096"]["kernel"],
              "plain_ms": k7["ms"]["4096"]["plain"],
-             **k5["bound"], "library_ms": None}, *k5_rates]})
+             **k5["bound"], "library_ms": None}, *k5_rates,
+            {"name": "sync_scan", "route": "cuda",
+             "source": "tetra_tpu_torch/csrc/sync_scan.cu",
+             "replaces": "tetra_tpu/phy/sync_vec.py:215 (lax.scan, not a "
+                         "Pallas kernel)",
+             "launches": n_launch["sync_scan"],
+             "snr8_launches": s_launch["sync_scan"],
+             "python_plane_launches": p_launch["sync_scan"],
+             "mixer_launches": mixer["python"]["launches"]["sync_scan"],
+             "mixer_native_launches": mixer["native"]["launches"][
+                 "sync_scan"],
+             "mesh_launches": mesh["prod_bits"]["launches"]["sync_scan"],
+             "launches_per_call": s1["prod"]["launches_per_call"],
+             "steps": s1["prod"]["steps"],
+             "max_abs_err": s1["max_abs_err"],
+             "ms": s1["prod"]["ms"], "plain_ms": s1["prod"]["plain_ms"],
+             "maps_ms": s1["prod"]["maps_ms"],
+             "steps_kernel_ms": s1["prod"]["steps_kernel_ms"],
+             "snr8_ms": s1["snr8"]["ms"],
+             "snr8_plain_ms": s1["snr8"]["plain_ms"],
+             **{k: s1["prod"][k] for k in ("bound_ms", "bound_by",
+                                           "bound_bytes", "bound_ops",
+                                           "bound_peak")},
+             "share_of_bound": s1["prod"]["bound_ms"] / s1["prod"]["ms"],
+             "snr8_bound_ms": s1["snr8"]["bound_ms"],
+             "snr8_bound_by": s1["snr8"]["bound_by"],
+             "library_ms": None, "library_reason": s1["library_reason"],
+             **s1_occ}]})
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from chip_smoke import (K6_RAGGED, K6_SHAPES, k1_edge_rows, k4_edge_rows,
-                        k6_edge_rows, k6_rows)
+                        k6_edge_rows, k6_rows, sync_case, sync_compare)
 from tetra_tpu_torch import constants as C, steady_fixture
 from tetra_tpu_torch.lmac import fused
 from tetra_tpu_torch.lmac.pipeline import _block_decoder
@@ -644,3 +644,62 @@ def test_early_fetch_on_card_matches_cpu():
     for a, b in zip(got, want):
         for key in b:
             assert np.array_equal(a[key], b[key]), key
+
+
+@pytest.mark.parametrize("tol", [0, 2])
+@pytest.mark.parametrize("B", [1, 3, 1023, 4097])
+@pytest.mark.parametrize("steps", [0, 1, 146])
+def test_s1_matches_plain(steps, B, tol):
+    """S1 (csrc/sync_scan.cu) against sync_scan_plain on the card: every
+    OUT_KEYS plane (values and type) and the carry equal, on production
+    rows with bit errors, a garbage span, and KNOW_FSTART carries whose
+    frame start lies before the buffer start (or at -1)."""
+    dev = cuda_device()
+    bits, carry = sync_case(B, steps, 100 * B + steps + tol, dev, n_kf=3)
+    res = sync_compare((bits, *carry, 64, steps), {"tol": tol})
+    assert res["differ"] == [], res
+    if steps == 146 and B >= 1023:
+        assert res["emitted"] > 0
+
+
+def test_s1_rejects_bad_arguments():
+    """A non-contiguous, wrong-type or off-card input raises; nothing is
+    copied in silence."""
+    from tetra_tpu_torch.phy.sync_vec import sync_scan
+    dev = cuda_device()
+    bits, carry = sync_case(4, 8, 1, dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        sync_scan(bits.T.contiguous().T, *carry, 0, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        sync_scan(bits[:, ::2], *carry, 0, 8)
+    for dtype in (torch.uint8, torch.int32, torch.bool):
+        with pytest.raises(TypeError):
+            sync_scan(bits.to(dtype), *carry, 0, 8)
+    with pytest.raises(ValueError, match="carry"):
+        sync_scan(bits, *(c.cpu() for c in carry), 0, 8)
+    with pytest.raises(ValueError, match="carry"):
+        sync_scan(bits, *(c[:3] for c in carry), 0, 8)
+
+
+def test_s1_launch_count_does_not_grow_with_steps():
+    """One sync_scan call on the card over one window: one S1 launch, and
+    the same number of device kernels (torch.profiler) at 1, 37 and 146
+    steps."""
+    from torch.profiler import ProfilerActivity, profile
+    from tetra_tpu_torch.phy.sync_vec import sync_scan
+    dev = cuda_device()
+    bits, carry = sync_case(256, 146, 5, dev)
+    counts = []
+    for steps in (1, 37, 146):
+        sync_scan(bits, *carry, 0, steps)                        # warm
+        torch.cuda.synchronize()
+        before = sync_scan.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sync_scan(bits, *carry, 0, steps)
+            torch.cuda.synchronize()
+        assert sync_scan.launches - before == 1
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert sum("sync_scan" in nm for nm in names) == 1, names
+        counts.append(len(names))
+    assert counts[0] == counts[1] == counts[2], counts

@@ -54,11 +54,15 @@ _SIGNATURES = {
                        _P],
     "tt_demod_fused_sps_occupancy": [_I, _P],
     "tt_demod_fused_scratch": [_I, _I],
+    "tt_sync_scan": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "tt_sync_scan_constants": [_P],
+    "tt_sync_scan_occupancy": [_P],
     "tt_error_string": [_I],
 }
 
 _RESTYPES = {"tt_error_string": ctypes.c_char_p,
-             "tt_demod_fused_scratch": ctypes.c_longlong}
+             "tt_demod_fused_scratch": ctypes.c_longlong,
+             "tt_sync_scan_constants": None}
 
 _lock = threading.Lock()
 _lib = None
@@ -136,7 +140,7 @@ def stream_ptr(device: torch.device) -> int:
 
 
 def occupancy(name: str, *args: int) -> dict:
-    """Launch shape of a kernel (K1, K2, K3, K4, K5, K6; K5 at any rate
+    """Launch shape of a kernel (K1, K2, K3, K4, K5, K6, S1; K5 at any rate
     as "tt_demod_fused_sps" with the rate as argument) at the given
     arguments: the exported `<name>_occupancy` fills resident blocks per
     SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers per
@@ -177,12 +181,14 @@ def wrappers() -> dict:
     from tetra_tpu_torch.ops.viterbi_segmented import decode_segmented_k4
     from tetra_tpu_torch.phy.demod_fused import demod_fused
     from tetra_tpu_torch.phy.pfb import pfb_channelize_rows, resample_rows
+    from tetra_tpu_torch.phy.sync_vec import sync_scan
     return {"viterbi_assembled": decode_assembled,
             "pfb_wola": pfb_channelize_rows,
             "resample_rows": resample_rows,
             "viterbi_segmented": decode_segmented_k4,
             "viterbi_decode": decode_k6,
-            "demod_fused": demod_fused}
+            "demod_fused": demod_fused,
+            "sync_scan": sync_scan}
 
 
 def reset_launches() -> None:

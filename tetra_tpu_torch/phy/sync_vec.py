@@ -12,9 +12,11 @@ module notes):
     visible(k == 20) = bits[q-1] == pat[0]
     visible(k == 19) = bits[q-1] == pat[0] and pat[1] == pat[0]
 
-This is a Python loop over steps, so on a GPU it is bound by kernel
-launches (tens of small ops per step); a one-thread-per-carrier kernel
-is queued in ROADMAP.md.
+sync_scan_plain is a Python loop over steps (tens of small ops per
+step), the plain version the tests hold the kernel against. sync_scan
+dispatches on the bits' device: on the CPU the plain version, on a card
+kernel S1 (csrc/sync_scan.cu, one thread per carrier, every step in one
+launch) after batched torch ops build the next-match maps once a call.
 
 MultiSync is the host wrapper of the Python control plane: chunked
 streaming over [B, L] bit arrays with an absolute-position carry, whose
@@ -22,18 +24,21 @@ per-carrier slot and event lists equal phy.sync.align_stream's.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from tetra_tpu_torch import constants as C
+from tetra_tpu_torch import constants as C, kernels
 from tetra_tpu_torch.device import resolve_device
 from tetra_tpu_torch.phy.burst import LOCKED_COLS, match_columns
 from tetra_tpu_torch.phy.sync import (FEED_BITS, RING_BITS, AlignedSlot,
                                       SyncEvent, _PRIO, _SEQS, _SEQ_LEN)
 
-__all__ = ["sync_scan", "OUT_KEYS", "VecSyncCarry", "MultiSync"]
+__all__ = ["sync_scan", "sync_scan_plain", "sync_steps", "next_match_maps",
+           "OUT_KEYS", "VecSyncCarry", "MultiSync"]
 
 _BIG = 1 << 27
 _PAT0 = tuple(int(_SEQS[c][0]) for c in LOCKED_COLS)
@@ -42,8 +47,8 @@ OUT_KEYS = ("burst", "emit", "col", "slot", "found", "found_rel",
             "found_q", "bad", "bad_rel", "lost")
 
 
-def sync_scan(bits, state0, buf_start0, nbuf0, nfs0, slot0, fed0: int,
-              steps: int, feed: int = FEED_BITS, tol: int = 0):
+def sync_scan_plain(bits, state0, buf_start0, nbuf0, nfs0, slot0, fed0: int,
+                    steps: int, feed: int = FEED_BITS, tol: int = 0):
     """Run `steps` feed quanta of the reference state machine over bits
     [B, L] (chunk-relative int32 positions).
 
@@ -194,6 +199,105 @@ def sync_scan(bits, state0, buf_start0, nbuf0, nfs0, slot0, fed0: int,
            for k, v in outs.items()}
     fed = int(fed0) + steps * feed
     return (state, buf_start, nbuf, nfs, slot_index, fed), out
+
+
+# the kernel's output planes, in the order of its two output tensors
+_FLAG_KEYS = ("burst", "emit", "found", "bad", "lost")
+_INT_KEYS = ("col", "slot", "found_rel", "found_q", "bad_rel")
+# the protocol constants S1 is built with, in tt_sync_scan_constants'
+# order
+_KERNEL_CONSTANTS = (C.BITS_PER_TS, RING_BITS, C.SYNC_TRAIN_OFFSET,
+                     C.NORM_TRAIN_OFFSET,
+                     *(_SEQ_LEN[c] for c in LOCKED_COLS), *_PAT0,
+                     *map(int, _PAT1_EQ_PAT0))
+
+
+@functools.cache
+def _check_kernel_constants() -> None:
+    """Raise unless S1 was built with this module's protocol constants
+    (once per process, before its first launch)."""
+    got = (ctypes.c_int * len(_KERNEL_CONSTANTS))()
+    kernels.lib().tt_sync_scan_constants(ctypes.addressof(got))
+    if tuple(got) != _KERNEL_CONSTANTS:
+        raise RuntimeError(f"csrc/sync_scan.cu's constants {tuple(got)} "
+                           f"differ from sync_vec's {_KERNEL_CONSTANTS}")
+
+
+def next_match_maps(bits, tol: int = 0) -> torch.Tensor:
+    """nm [3, B, L + 1] int32: for each locked column, the first position
+    at or after each one where its training sequence matches (with at
+    most `tol` bit errors), L where none, and L at the sentinel position
+    L. Batched torch ops, once per sync_scan call on a card."""
+    B, L = bits.shape
+    match = match_columns(bits, LOCKED_COLS, tol)           # [B, L, 3]
+    idx = torch.arange(L, dtype=torch.int32, device=bits.device)
+    v = torch.where(match.permute(2, 0, 1), idx, L)         # [3, B, L]
+    nm = torch.full((len(LOCKED_COLS), B, L + 1), L, dtype=torch.int32,
+                    device=bits.device)
+    nm[..., :L] = torch.cummin(v.flip(2), dim=2).values.flip(2)
+    return nm
+
+
+def sync_steps(bits, nm, carry, steps: int, feed: int = FEED_BITS,
+               tol: int = 0):
+    """Kernel S1 alone, one launch (none when steps or B is 0): `steps`
+    feed quanta from carry [5, B] int32 (state, buf_start, nbuf, nfs,
+    slot_index) over bits int8 [B, L] and nm = next_match_maps(bits,
+    tol), all on one card and contiguous (sync_scan checks them; nm may
+    be None when there is no step to run). Returns (carry_out [5, B],
+    flags [5, steps, B] bool (burst, emit, found, bad, lost), ints
+    [5, steps, B] int32 (col, slot, found_rel, found_q, bad_rel))."""
+    B, L = bits.shape
+    dev = bits.device
+    flags = torch.empty((len(_FLAG_KEYS), steps, B), dtype=torch.bool,
+                        device=dev)
+    ints = torch.empty((len(_INT_KEYS), steps, B), dtype=torch.int32,
+                       device=dev)
+    if steps == 0 or B == 0:
+        return carry.clone(), flags, ints
+    _check_kernel_constants()
+    carry_out = torch.empty_like(carry)
+    rc = kernels.lib().tt_sync_scan(
+        bits.data_ptr(), nm.data_ptr(), carry.data_ptr(), B, L, steps, feed,
+        int(bool(tol)), carry_out.data_ptr(), flags.data_ptr(),
+        ints.data_ptr(), kernels.stream_ptr(dev))
+    kernels.check(rc, "tt_sync_scan")
+    sync_scan.launches += 1
+    return carry_out, flags, ints
+
+
+def sync_scan(bits, state0, buf_start0, nbuf0, nfs0, slot0, fed0: int,
+              steps: int, feed: int = FEED_BITS, tol: int = 0):
+    """sync_scan_plain's function (same arguments and return value) on
+    the bits' device: the plain version for a CPU tensor, kernel S1 for
+    a CUDA tensor (bits int8 [B, L], contiguous; the carry tensors [B]
+    on the same card), which raises rather than fall back. On a card a
+    call makes a fixed number of launches whatever `steps` is: the
+    next-match maps (next_match_maps), the carry's stack and one launch
+    of S1 for all steps (none when steps or B is 0); out's bool planes
+    are bytes 0/1 as the plain version's, its int planes int32."""
+    if bits.device.type == "cpu":
+        return sync_scan_plain(bits, state0, buf_start0, nbuf0, nfs0, slot0,
+                               fed0, steps, feed, tol)
+    if bits.device.type != "cuda":
+        raise ValueError(f"sync_scan: no kernel for device {bits.device}")
+    kernels.require_cuda(bits, "bits", torch.int8, 2)
+    B, L = bits.shape
+    dev = bits.device
+    carry = torch.stack([x.to(torch.int32) for x in
+                         (state0, buf_start0, nbuf0, nfs0, slot0)])
+    if carry.shape != (5, B) or carry.device != dev:
+        raise ValueError(f"sync_scan: the carry must be [{B}] tensors on "
+                         f"{dev}, got {tuple(carry.shape[1:])} on "
+                         f"{carry.device}")
+    nm = next_match_maps(bits, tol) if steps > 0 and B > 0 else None
+    carry_out, flags, ints = sync_steps(bits, nm, carry, steps, feed, tol)
+    planes = dict(zip(_FLAG_KEYS, flags)) | dict(zip(_INT_KEYS, ints))
+    out = {k: planes[k] for k in OUT_KEYS}
+    return (*carry_out.unbind(0), int(fed0) + steps * feed), out
+
+
+sync_scan.launches = 0
 
 
 @dataclass

@@ -4,7 +4,7 @@ and the steady-4096 pass of one checkout on the card, for comparing two
 trees in one session.
 
     python3 tools/bench_torch_kernels.py [--repo PATH] [--reps N]
-                                         [--no-steady] [--only k3]
+                                         [--no-steady] [--only k3|s1]
 
 --repo names the checkout whose `tetra_tpu_torch` is imported and built
 (default: the one holding this script), so that a parent tree unpacked
@@ -30,6 +30,13 @@ parent in one call. Prints one JSON line:
 - with `--only k3`, nothing but K3 and the front end's span after K2 at
   the prod-1024 and wide-512 shapes, and wide-512's step (`k3` and
   `wide512_step` below);
+- with `--only s1`, nothing but what the burst synchroniser (S1's
+  `sync_scan`) moves, each with the tree's own code: one `sync_scan`
+  call at prod-1024's shape, the tree's `tools/profile_torch_prod.py`
+  and `--soft` (layer tables and device idle share, in subprocesses),
+  mixer-64 on both planes and two prod-1024-python passes through the
+  tree's `chip_smoke.run_mixer` and `python_run`, and the caching
+  allocator's counters over four prod-1024 passes (`s1` below);
 - K5 at the steady shape [4096, 32,768] (the clean steady capture):
   `demod_fused` (the kernel's launch) and `demodulate_hard_ri_pallas`
   (the wrapper the steady chain calls), and K7's stage bisect
@@ -308,6 +315,100 @@ def k5(dev, cs, kernels, re, im, reps: int) -> dict:
             "k7": stage_times(dev, reps=reps)}
 
 
+def s1(dev, cs, repo: pathlib.Path, reps: int) -> dict:
+    """What the tree's burst synchroniser costs: a sync_scan call on
+    chip_smoke.sync_case's 1024 carriers x 146 steps (the call, and where
+    the tree has them the next-match maps and S1 alone; the tree's plain
+    loop where it has no S1), the layer tables of prod-1024 and
+    snr8-1024, mixer-64 on both planes, prod-1024-python and the caching
+    allocator's counters over prod-1024 passes."""
+    import subprocess
+    import torch
+    from profile_torch_demod import cuda_ms
+    from tetra_tpu_torch import prod_fixture as P
+    from tetra_tpu_torch.phy import sync_vec as sv
+    from tetra_tpu_torch.utils import trace
+    res = {"profiles": {}}
+    for name, extra in (("prod", []), ("snr8", ["--soft"])):
+        out = subprocess.run(
+            [sys.executable, str(repo / "tools" / "profile_torch_prod.py"),
+             *extra], capture_output=True, text=True, timeout=900)
+        if out.returncode:
+            raise RuntimeError(f"profile_torch_prod {extra}: "
+                               f"{out.stderr[-2000:]}")
+        res["profiles"][name] = [json.loads(x) for x in out.stdout.splitlines()
+                                 if x.startswith("{")]
+    steps = 146
+    bits, carry = cs.sync_case(1024, steps, 13, dev)
+    call = lambda: sv.sync_scan(bits, *carry, 0, steps)
+    has_s1 = hasattr(sv, "sync_steps")
+    res["sync_scan"] = {"carriers": 1024, "window_bits": int(bits.shape[1]),
+                        "steps": steps, "kernel": has_s1,
+                        "ms": cuda_ms(call, reps if has_s1 else 2),
+                        **cs.sync_bound(1024, int(bits.shape[1]), steps, 0)}
+    if has_s1:
+        nm = sv.next_match_maps(bits)
+        c = torch.stack(carry)
+        res["sync_scan"] |= {
+            "maps_ms": cuda_ms(lambda: sv.next_match_maps(bits), reps),
+            "steps_kernel_ms": cuda_ms(lambda: sv.sync_steps(bits, nm, c,
+                                                             steps), reps)}
+        del nm, c
+    del bits, carry
+    tree = _tree_chip_smoke(repo)
+    card = cs.smi()
+    fx, fxm = P.load(), P.load_mixer()
+    with P.keystore_file() as ks:
+        mix, _ = tree.run_mixer(ks, dev, fx, fxm, card)
+        res["mixer"] = {
+            p: {k: mix[p][k] for k in ("wall_s", "warm_s", "crc_ok",
+                                       "carriers_differing_from_jax")}
+            | ({"host_split": mix[p]["host_split"]} if p == "python"
+               else {})
+            for p in ("python", "native")}
+        res["mixer"]["native_profile"] = {
+            k: mix["native_profile"][k] for k in
+            ("profiled_wall_s", "device_busy_s", "device_idle_share",
+             "top_kernels")}
+        res["mixer"]["python_equals_native"] = mix["python_equals_native"]
+        bits_p, _ = P.mixed_bits(1024, 0.1, fx)
+        packed = P.wideband_capture(bits_p)
+        res["prod_python"] = []
+        for _ in range(2):
+            mrx, _, _, wall = tree.python_run(packed, 1024, ks, dev,
+                                              "process_iq4c", 4,
+                                              log_carriers={}, sink=False)
+            res["prod_python"].append({
+                "wall_s": wall,
+                "host_split": {k: v["total_s"] for k, v in
+                               trace.timings().items()
+                               if k.startswith("pyplane.")},
+                "crc_ok": sum(c.stats.crc_ok for c in mrx.carriers)})
+        keys = ("num_alloc_retries", "num_device_alloc", "num_device_free")
+        P.run_receiver(packed, 1024, ks, dev, 4)
+        res["allocator"] = []
+        for _ in range(4):
+            m0 = torch.cuda.memory_stats()
+            mrx, wall = P.run_receiver(packed, 1024, ks, dev, 4)
+            m1 = torch.cuda.memory_stats()
+            res["allocator"].append(
+                {"wall_s": wall, "counts": cs.counts(mrx),
+                 **{k: m1.get(k, 0) - m0.get(k, 0) for k in keys},
+                 "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                 "reserved_gb": torch.cuda.memory_reserved() / 1e9})
+    return res
+
+
+def _tree_chip_smoke(repo: pathlib.Path):
+    """The chip_smoke.py of the tree under test, by path (its run_mixer
+    and python_run drive that tree's receiver as it was written)."""
+    spec = importlib.util.spec_from_file_location("_cs_tree",
+                                                  repo / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def steady_planes(dev):
     """The clean steady capture at 4096 carriers on dev: (fx, re, im)."""
     import torch
@@ -346,9 +447,10 @@ def main() -> int:
     ap.add_argument("--repo", default=str(ROOT))
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--no-steady", action="store_true")
-    ap.add_argument("--only", choices=("k3",),
+    ap.add_argument("--only", choices=("k3", "s1"),
                     help="time only this kernel (k3: K3 and the front end "
-                         "after K2)")
+                         "after K2; s1: the burst synchroniser and the "
+                         "passes it moves)")
     args = ap.parse_args()
     repo = pathlib.Path(args.repo).resolve()
     sys.path[:0] = [str(repo), str(HERE)]
@@ -371,6 +473,10 @@ def main() -> int:
            "build_s": time.perf_counter() - t0}
     if args.only == "k3":
         res["k3"] = k3(dev, cs, kernels, args.reps)
+        print(json.dumps(res), flush=True)
+        return 0
+    if args.only == "s1":
+        res["s1"] = s1(dev, cs, repo, args.reps)
         print(json.dumps(res), flush=True)
         return 0
     res.update({"k1": {}, "k4": {}, "k6": k6(dev, cs, kernels, args.reps)})
