@@ -1534,10 +1534,14 @@ def run_mixer(ks_path: str, dev, fx: dict, fxm: dict, card: str,
         logs = {c: [] for c in P.MIXER_LOG_CHANNELS}
         log = ([P.line_logger(logs[c]) if c in logs else (lambda *a: None)
                 for c in range(len(offsets))] if plane == "python" else None)
-        trace.clear_timings()
+        trace.reset()
+        trace.set_level(1)
         reset_launches()
-        mrx, wall, cmds = mixer_cli(u8, P.MIXER_FS, carriers, ks_path, plane,
-                                    dev, log=log)
+        try:
+            mrx, wall, cmds = mixer_cli(u8, P.MIXER_FS, carriers, ks_path,
+                                        plane, dev, log=log)
+        finally:
+            trace.set_level(0)
         n_launch = launches()
         split = {k.split(".", 1)[1] + "_s": v["total_s"]
                  for k, v in trace.timings().items()
@@ -1657,8 +1661,8 @@ def python_run(packed, n_car: int, ks_path: str, dev, method: str,
     """One pass of MultiCarrierReceiver(control_plane="python") over
     `packed` in n_chunks calls of `method`: (receiver, per-carrier log
     lines (for log_carriers; all by default), TL-SDU sink calls, wall
-    seconds). The per-stage timers (utils.trace "pyplane.*") are reset
-    first."""
+    seconds). The per-stage spans (utils.trace "pyplane.*") are reset
+    first and recorded with tracing on for the pass."""
     import numpy as np
     import torch
     from tetra_tpu_torch import prod_fixture as P
@@ -1671,21 +1675,26 @@ def python_run(packed, n_car: int, ks_path: str, dev, method: str,
     calls = []
     k = 2 if method == "process_iq8" else 1
     cuts = np.linspace(0, len(packed) // k, n_chunks + 1).astype(int) * k
-    trace.clear_timings()
-    sync()
-    t0 = time.perf_counter()
-    mrx = MultiCarrierReceiver(
-        [], fs=25_000.0 * n_car, pfb_channels=np.arange(n_car), n_chan=n_car,
-        keystore_path=ks_path, control_plane="python", device=dev,
-        log=[P.line_logger(logs[c]) if c in keep else (lambda *a: None)
-             for c in range(n_car)],
-        tl_sdu_sink=(lambda c, pd, pt, b: calls.append(
-            (c, pd, pt, b.tobytes()))) if sink else None)
-    for i in range(n_chunks):
-        getattr(mrx, method)(packed[cuts[i]:cuts[i + 1]],
-                             final=i == n_chunks - 1)
-    sync()
-    return mrx, logs, calls, time.perf_counter() - t0
+    trace.reset()
+    trace.set_level(1)
+    try:
+        sync()
+        t0 = time.perf_counter()
+        mrx = MultiCarrierReceiver(
+            [], fs=25_000.0 * n_car, pfb_channels=np.arange(n_car),
+            n_chan=n_car, keystore_path=ks_path, control_plane="python",
+            device=dev,
+            log=[P.line_logger(logs[c]) if c in keep else (lambda *a: None)
+                 for c in range(n_car)],
+            tl_sdu_sink=(lambda c, pd, pt, b: calls.append(
+                (c, pd, pt, b.tobytes()))) if sink else None)
+        for i in range(n_chunks):
+            getattr(mrx, method)(packed[cuts[i]:cuts[i + 1]],
+                                 final=i == n_chunks - 1)
+        sync()
+        return mrx, logs, calls, time.perf_counter() - t0
+    finally:
+        trace.set_level(0)
 
 
 def iq8_capture(bits):

@@ -486,7 +486,8 @@ def test_quantizers_byte_identical():
 
 def test_trace_module(tmp_path):
     """set_level gates taps (tensors and arrays, dumped to tap_dir),
-    timer feeds timings, device_trace writes a Chrome trace."""
+    spans feed timings once tracing is on, device_trace writes a Chrome
+    trace."""
     from tetra_tpu_torch.utils import trace
     trace.set_level(1)
     trace.tap("x", np.ones(3))
@@ -501,12 +502,17 @@ def test_trace_module(tmp_path):
     finally:
         trace.clear_taps()
         trace.set_level(0)
-    trace.clear_timings()
-    with trace.timer("t"):
-        pass
-    with trace.timer("t"):
-        pass
+    trace.reset()
+    trace.set_level(1)
+    try:
+        with trace.span("t"):
+            pass
+        with trace.span("t"):
+            pass
+    finally:
+        trace.set_level(0)
     assert trace.timings()["t"]["n"] == 2
+    trace.reset()
     with trace.device_trace(str(tmp_path / "prof")) as prof:
         torch.ones(8).sum()
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0

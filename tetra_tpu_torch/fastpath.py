@@ -63,10 +63,11 @@ from tetra_tpu_torch.phy.burst import split_norm_burst
 from tetra_tpu_torch.phy.sync import FEED_BITS, RING_BITS
 from tetra_tpu_torch.phy.sync_vec import sync_scan
 from tetra_tpu_torch.rx import _PACK_BITS, _pack_selected
+from tetra_tpu_torch.utils import trace
 
 __all__ = ["FastChunkPipeline", "PipelineState", "carry_from_numpy",
-           "fused_chunk", "fused_chunk_iq", "max_slots", "ROW_BYTES",
-           "RING_PAD"]
+           "fused_chunk", "fused_chunk_iq", "max_slots", "next_seq",
+           "ROW_BYTES", "RING_PAD"]
 
 ROW_BYTES = 40            # 36 packed section bytes + flags+delta+car16
 _SEC_BYTES = 36           # ceil(282 / 8): worst-kind section total
@@ -74,6 +75,14 @@ SIDE_I32 = 8              # n_slots tail st bs nb nfs si scramb
 RING_PAD = RING_BITS + 512   # device-resident tail: ring depth + slack
 G_SLACK = 3               # per-carrier row-budget slack over chunk/510
 SOFT_ONE = 31             # soft value of a full-confidence hard bit
+_NEXT_SEQ = 0             # the id of the next dispatched chunk (per process)
+
+
+def next_seq() -> int:
+    """The sequence id the next dispatched chunk will get: ids are
+    unique in the process, in dispatch order (the chunk id of the
+    trace's spans)."""
+    return _NEXT_SEQ
 
 
 def max_slots(steps: int, feed: int) -> int:
@@ -113,9 +122,10 @@ def _fused_chunk_body(ring, chunk, end_rel: int, rebase: int, st0, bs0,
     bits = (win < 0).to(torch.int8) if soft else win
     L = win.shape[1]
 
-    (st, bs, nb, nfs, si, _), out = sync_scan(
-        bits, st0, bs0 - rebase, nb0, nfs0 - rebase, st0 * 0, fed_rel,
-        steps, feed, tol)
+    with trace.span("chunk.sync"):
+        (st, bs, nb, nfs, si, _), out = sync_scan(
+            bits, st0, bs0 - rebase, nb0, nfs0 - rebase, st0 * 0, fed_rel,
+            steps, feed, tol)
 
     # ---- GLOBAL slot compaction: one stable argsort over carriers x
     # steps; emitted slots get carrier-major keys c*steps + t, holes
@@ -152,48 +162,51 @@ def _fused_chunk_body(ring, chunk, end_rel: int, rebase: int, st0, bs0,
     # (tetra_lower_mac.c:283-310); rows are carrier-major, so the fill
     # is segmented by carrier: the last SB1-bearing row at or before
     # each row, if it belongs to the same carrier
-    r1 = pipeline.decode_block(
-        "SB1", flat[:, C.SB_BLK1_OFFSET: C.SB_BLK1_OFFSET + C.SB_BLK1_BITS],
-        C.SCRAMB_INIT)
-    t1 = r1.type1.to(torch.int64)
+    with trace.span("chunk.fec"):
+        r1 = pipeline.decode_block(
+            "SB1",
+            flat[:, C.SB_BLK1_OFFSET: C.SB_BLK1_OFFSET + C.SB_BLK1_BITS],
+            C.SCRAMB_INIT)
+        t1 = r1.type1.to(torch.int64)
 
-    def field(a, b):
-        w = 1 << torch.arange(b - a - 1, -1, -1, device=dev)
-        return (t1[:, a:b] * w).sum(-1)
+        def field(a, b):
+            w = 1 << torch.arange(b - a - 1, -1, -1, device=dev)
+            return (t1[:, a:b] * w).sum(-1)
 
-    newinit = ((((field(31, 41) & 0x3FF) << 20)
-                | ((field(41, 55) & 0x3FFF) << 6)
-                | (field(4, 10) & 0x3F)) << 2) | C.SCRAMB_INIT
-    have = gvalid & (kind == 0) & r1.crc_ok
-    segcar = torch.where(gvalid, gcar, -1)
-    rows = torch.arange(G, device=dev)
-    last = torch.cummax(torch.where(have, rows, -1), dim=0).values
-    lastc = last.clamp(min=0)
-    fh = (last >= 0) & (segcar[lastc] == segcar)
-    inits = torch.where(fh, newinit[lastc], scr0[gcar])
-    # per-carrier final code: the fill value at each carrier's last row
-    # (carriers with no rows this chunk keep their carry)
-    segend = gvalid & torch.cat([segcar[1:] != segcar[:-1],
-                                 torch.ones(1, dtype=torch.bool,
-                                            device=dev)])
-    scr_ext = torch.cat([scr0, torch.zeros(1, dtype=scr0.dtype,
-                                           device=dev)])
-    scr_ext = scr_ext.scatter(0, torch.where(segend, gcar, B), inits)
-    scr_final = scr_ext[:B]
+        newinit = ((((field(31, 41) & 0x3FF) << 20)
+                    | ((field(41, 55) & 0x3FFF) << 6)
+                    | (field(4, 10) & 0x3F)) << 2) | C.SCRAMB_INIT
+        have = gvalid & (kind == 0) & r1.crc_ok
+        segcar = torch.where(gvalid, gcar, -1)
+        rows = torch.arange(G, device=dev)
+        last = torch.cummax(torch.where(have, rows, -1), dim=0).values
+        lastc = last.clamp(min=0)
+        fh = (last >= 0) & (segcar[lastc] == segcar)
+        inits = torch.where(fh, newinit[lastc], scr0[gcar])
+        # per-carrier final code: the fill value at each carrier's last
+        # row (carriers with no rows this chunk keep their carry)
+        segend = gvalid & torch.cat([segcar[1:] != segcar[:-1],
+                                     torch.ones(1, dtype=torch.bool,
+                                                device=dev)])
+        scr_ext = torch.cat([scr0, torch.zeros(1, dtype=scr0.dtype,
+                                               device=dev)])
+        scr_ext = scr_ext.scatter(0, torch.where(segend, gcar, B), inits)
+        scr_final = scr_ext[:B]
 
-    # ---- traffic payloads: type-4 bits of SCH/F (one 432-bit block) and
-    # of an NDB's second half (its own fresh keystream), for the dumps
-    _, b1, b2 = split_norm_burst(flat)
-    t4_full = scramble.scramb_bits(inits, torch.cat([b1, b2], dim=1))
-    t4_b2 = scramble.scramb_bits(inits, b2)
+        # ---- traffic payloads: type-4 bits of SCH/F (one 432-bit block)
+        # and of an NDB's second half (its own fresh keystream), for the
+        # dumps
+        _, b1, b2 = split_norm_burst(flat)
+        t4_full = scramble.scramb_bits(inits, torch.cat([b1, b2], dim=1))
+        t4_b2 = scramble.scramb_bits(inits, b2)
 
-    # ---- kind-compacted FEC decode + per-kind section packing
-    if soft:
-        soft_rows = win.reshape(-1)[pos].to(torch.float32)
-        res = fused.decode_slots_fused(soft_rows, inits, kind,
-                                       soft_input=True)
-    else:
-        res = fused.decode_slots_fused(flat, inits, kind)
+        # ---- kind-compacted FEC decode + per-kind section packing
+        if soft:
+            soft_rows = win.reshape(-1)[pos].to(torch.float32)
+            res = fused.decode_slots_fused(soft_rows, inits, kind,
+                                           soft_input=True)
+        else:
+            res = fused.decode_slots_fused(flat, inits, kind)
     pk = _pack_selected(res, kind)                       # [G, 408] int8
 
     A, Bs, K = pk[:, :268], pk[:, 268:392], pk[:, 392:406]
@@ -279,7 +292,9 @@ def fused_chunk_iq(ring, raw, channel_idx, end_rel, rebase, st0, bs0, nb0,
                    lc_pad: int, soft: bool = False, tol: int = 0):
     """Wideband-IQ entry: raw quantized RF samples -> the chunk bundle.
     keep: how many trailing demod bits are NEW stream bits."""
-    bits_full = _iq_frontend(raw, channel_idx, fmt, n_chan, fs, sps, soft)
+    with trace.span("chunk.frontend"):
+        bits_full = _iq_frontend(raw, channel_idx, fmt, n_chan, fs, sps,
+                                 soft)
     chunk = bits_full[:, bits_full.shape[1] - keep:]
     if lc_pad != keep:
         chunk = F.pad(chunk, (0, lc_pad - keep))
@@ -364,6 +379,7 @@ class ChunkHandle:
     # bundle, CUDA event recorded after the copy and the pinned buffer
     # it lies in, or None and None on the CPU)
     fetch: tuple | None = None
+    seq: int = -1                 # the chunk's id (next_seq at dispatch)
 
 
 @dataclass
@@ -547,7 +563,10 @@ class FastChunkPipeline:
         s.carry_base = new_base
         s.end = end_abs
         s.fed += steps * self.feed
-        h = ChunkHandle(bundle, t4f, t4b, G, (dispatch, scr), maxs)
+        global _NEXT_SEQ
+        h = ChunkHandle(bundle, t4f, t4b, G, (dispatch, scr), maxs,
+                        seq=_NEXT_SEQ)
+        _NEXT_SEQ += 1
         self._outstanding.append(h)
         return h
 
@@ -580,14 +599,15 @@ class FastChunkPipeline:
         has landed (the pinned buffer then returns to the free list,
         unless a larger bundle has been seen since), else a blocking
         copy."""
-        if h.fetch is None:
-            return h.bundle.cpu().numpy()
-        host, ready, buf = h.fetch
-        h.fetch = None
-        if ready is None:
-            return host.numpy()
-        ready.synchronize()
-        out = host.numpy().copy()
+        with trace.span("chunk.fetch_wait", h.seq):
+            if h.fetch is None:
+                return h.bundle.cpu().numpy()
+            host, ready, buf = h.fetch
+            h.fetch = None
+            if ready is None:
+                return host.numpy()
+            ready.synchronize()
+            out = host.numpy().copy()
         if buf.numel() >= self._pinned_numel:
             self._pinned.append(buf)
         return out
@@ -608,7 +628,8 @@ class FastChunkPipeline:
             segs = np.stack(collectives.all_gather_host(seg, group))
         else:
             segs = seg[None]
-        d = self._decode_segments(h.g_rows, segs, np.arange(self.shards))
+        with trace.span("chunk.parse", h.seq):
+            d = self._decode_segments(h.g_rows, segs, np.arange(self.shards))
         if d is None:
             if h.inputs is None or h.g_rows >= self.n * h.maxs:
                 raise RuntimeError("slot compaction overflow (bound bug)")
@@ -626,8 +647,9 @@ class FastChunkPipeline:
         fetches another's. "side_carrier" maps the returned n_slots,
         tail and scramb entries to global carrier ids."""
         seg = self._fetched(h)
-        d = self._decode_segments(h.g_rows, seg[None],
-                                  np.asarray([self.shard], np.int32))
+        with trace.span("chunk.parse", h.seq):
+            d = self._decode_segments(h.g_rows, seg[None],
+                                      np.asarray([self.shard], np.int32))
         if d is None:
             # a re-run would have to be agreed on by every rank; size
             # G_SLACK for the workload instead (as tetra_tpu)
@@ -712,10 +734,12 @@ class FastChunkPipeline:
         """Re-run an overflowed chunk with the sufficient budget, then
         carry the corrected scrambling codes through every chunk
         dispatched after it and into the pipeline head."""
-        scr = self._dispatch(h, self.n * h.maxs)[4]
-        later = self._outstanding[self._outstanding.index(h) + 1:]
-        for h2 in later:
-            if torch.equal(h2.inputs[1], scr):
-                return          # the stale carry was already correct
-            scr = self._dispatch(h2, h2.g_rows, scr_override=scr)[4]
-        self.state.carry = self.state.carry[:4] + (scr,)
+        trace.count("chunk.reruns")
+        with trace.span("chunk.rerun", h.seq):
+            scr = self._dispatch(h, self.n * h.maxs)[4]
+            later = self._outstanding[self._outstanding.index(h) + 1:]
+            for h2 in later:
+                if torch.equal(h2.inputs[1], scr):
+                    return      # the stale carry was already correct
+                scr = self._dispatch(h2, h2.g_rows, scr_override=scr)[4]
+            self.state.carry = self.state.carry[:4] + (scr,)

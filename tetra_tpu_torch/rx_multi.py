@@ -26,14 +26,20 @@ Two control planes, as in the JAX package:
   each carrier's TetraReceiver walks its upper MAC / LLC / MLE / crypto
   per slot on the host, with the reference's log lines (`log`: one
   callable for all carriers, or one per carrier), per-carrier
-  decryption, GSMTAP per carrier and the L3 parse. The time of each
-  stage accumulates in utils.trace.timings() under "pyplane.*".
+  decryption, GSMTAP per carrier and the L3 parse. With tracing on,
+  each stage is a span "pyplane.*" (utils.trace.timings()).
 * "native": each chunk runs as one fused chunk program on the device
   (fastpath.submit_iq) and one C++ walk of the upper MAC / LLC / MLE /
   crypto (umac.native_exec), with structured events instead of log
   lines. Chunks are pipelined: up to `pipeline_depth` dispatched chunks
   wait before the oldest is fetched and walked; a final=True call
   drains the queue.
+
+With tracing on (utils.trace), the receiver's construction is a span
+"rx.build", each public process_* call a span "call", and on the native
+plane each chunk's "chunk.submit" (with the front end, sync and FEC
+enqueues inside it), "chunk.fetch_wait", "chunk.parse", "chunk.walk" and
+"chunk.egress" carry the chunk's id (fastpath.next_seq).
 
 `carriers` holds one TetraReceiver per carrier on both planes (the
 native plane writes its stats, TDMA time and cell identity there).
@@ -67,7 +73,6 @@ a multi-process mesh.
 """
 from __future__ import annotations
 
-import contextlib
 import os
 import warnings
 
@@ -75,6 +80,7 @@ import numpy as np
 import torch
 
 from tetra_tpu_torch.device import resolve_device
+from tetra_tpu_torch import fastpath
 from tetra_tpu_torch.fastpath import FastChunkPipeline, _iq_frontend, \
     _iq_to_ri
 from tetra_tpu_torch.phy import channelizer, dqpsk
@@ -130,6 +136,7 @@ def mixer_block(fs: float):
 
 
 class MultiCarrierReceiver:
+    @trace.spanned("rx.build")
     def __init__(self, offsets_hz, fs: float, sps: int = 2,
                  keystore_path: str | None = None,
                  dumpdir: str | None = None, log=None,
@@ -236,24 +243,28 @@ class MultiCarrierReceiver:
         self._mx_pos = 0      # absolute sample index of the consumed head
         self._mx_g = None
 
+    @trace.spanned("call")
     def process_iq(self, wideband_iq, final: bool = True) -> list[RxStats]:
         """One chunk of wideband complex samples through the chain (sent
         to the device as interleaved float32 I/Q)."""
         iq = np.ascontiguousarray(np.asarray(wideband_iq, np.complex64))
         return self._wideband_stream(iq.view(np.float32), 2, "f32i", final)
 
+    @trace.spanned("call")
     def process_iq8(self, iq8, final: bool = True) -> list[RxStats]:
         """One chunk of interleaved int8 wideband IQ ([I0, Q0, I1, Q1,
         ...], two bytes per complex sample) through the chain."""
         return self._wideband_stream(np.asarray(iq8, np.int8), 2, "iq8",
                                      final)
 
+    @trace.spanned("call")
     def process_iq4c(self, packed_u8, final: bool = True) -> list[RxStats]:
         """One chunk of companded 4+4-bit wideband IQ (one byte per
         complex sample, io.stream.quantize_iq4c) through the chain."""
         return self._wideband_stream(np.asarray(packed_u8, np.uint8), 1,
                                      "iq4c", final)
 
+    @trace.spanned("call")
     def process_iq4(self, packed_u8, final: bool = True) -> list[RxStats]:
         """One chunk of uniform 4+4-bit wideband IQ (one byte per complex
         sample, io.stream.quantize_iq4) through the chain. Its 15 linear
@@ -276,6 +287,36 @@ class MultiCarrierReceiver:
         process_bits. Mixer-bank receivers take _mixer_stream."""
         if self.pfb_channels is None:
             return self._mixer_stream(raw, k, fmt, final)
+        if self.control_plane == "native":
+            h = None
+            with trace.span("chunk.submit", fastpath.next_seq()) as sp:
+                take = self._wb_take(raw, k, final)
+                if take is not None:
+                    self._prefetch_pending()
+                    h = self._fast.submit_iq(take[0], fmt, take[1],
+                                             self._chan_idx, self.n_chan,
+                                             self.fs, sps=self.sps)
+                if h is None and sp is not None:
+                    sp.chunk = None     # nothing dispatched
+            if take is None:
+                return self._no_chunk(final)
+            return self._native_drain(h, final)
+        take = self._wb_take(raw, k, final)
+        if take is None:
+            return self._no_chunk(final)
+        feed, keep = take
+        with trace.span("pyplane.frontend"):
+            raw_d = torch.as_tensor(np.asarray(feed)).to(self.device)
+            bits = _iq_frontend(raw_d, self._chan_idx, fmt, self.n_chan,
+                                self.fs, self.sps)
+            bits = bits[:, bits.shape[1] - keep:].cpu().numpy() \
+                .astype(np.uint8)
+        return self._process_bits(bits, final=final)
+
+    def _wb_take(self, raw, k: int, final: bool):
+        """The PFB stream's bookkeeping for one call: (feed with its
+        overlap-save history, new demod bits to keep), or None when the
+        call completes no BLOCK (the samples wait for the next)."""
         n = self.n_chan
         BLOCK = 25 * n
         W = 2 * BLOCK
@@ -291,9 +332,7 @@ class MultiCarrierReceiver:
             self._wb_rem = data
             if final:
                 self._reset_wb_stream()
-                return self.process_bits(
-                    np.zeros((len(self.carriers), 0), np.uint8), final=True)
-            return [c.stats for c in self.carriers]
+            return None
         self._wb_rem = data[usable * k:]
         chunk = data[: usable * k]
         first = self._wb_hist is None
@@ -309,18 +348,18 @@ class MultiCarrierReceiver:
         self._wb_hist = hist_src[-W * k:]
         if final:
             self._reset_wb_stream()
+        return feed, keep
+
+    def _no_chunk(self, final: bool):
+        """A call that completed no chunk: drain on final, else the
+        stats as they stand. (A native-plane submit of no bits would
+        dispatch nothing.)"""
+        if not final:
+            return [c.stats for c in self.carriers]
         if self.control_plane == "native":
-            self._prefetch_pending()
-            h = self._fast.submit_iq(feed, fmt, keep, self._chan_idx, n,
-                                     self.fs, sps=self.sps)
-            return self._native_drain(h, final)
-        with trace.timer("pyplane.frontend"):
-            raw_d = torch.as_tensor(np.asarray(feed)).to(self.device)
-            bits = _iq_frontend(raw_d, self._chan_idx, fmt, n, self.fs,
-                                self.sps)
-            bits = bits[:, bits.shape[1] - keep:].cpu().numpy() \
-                .astype(np.uint8)
-        return self.process_bits(bits, final=final)
+            return self._native_drain(None, True)
+        return self._process_bits(
+            np.zeros((len(self.carriers), 0), np.uint8), final=True)
 
     def _reset_wb_stream(self):
         self._wb_hist = None
@@ -340,12 +379,33 @@ class MultiCarrierReceiver:
         A rate whose fs/36k is not rational with a small denominator is
         demodulated per call, statelessly."""
         blk = mixer_block(self.fs)
+        if blk is None and len(raw) == 0:
+            return self._process_bits(
+                np.zeros((len(self.carriers), 0), np.uint8), final=final)
+        if self.control_plane == "python":
+            take = self._mx_take(raw, k, fmt, final, blk)
+            if take is None:
+                return self._no_chunk(final)
+            return self._process_bits(self._mixer_bits(*take), final=final)
+        h = None
+        with trace.span("chunk.submit", fastpath.next_seq()) as sp:
+            take = self._mx_take(raw, k, fmt, final, blk)
+            if take is not None:
+                h = self._submit(self._mixer_bits(*take))
+            if h is None and sp is not None:
+                sp.chunk = None         # nothing dispatched
+        if take is None:
+            return self._no_chunk(final)
+        return self._native_drain(h, final)
+
+    def _mx_take(self, raw, k: int, fmt: str, final: bool, blk):
+        """The mixer stream's bookkeeping for one call: the arguments of
+        _mixer_bits (feed with its history, format, absolute index of its
+        first sample, new bits to keep), or None when the call completes
+        no BLOCK. blk: mixer_block(fs); None demodulates the call
+        alone."""
         if blk is None:
-            if len(raw) == 0:
-                return self.process_bits(
-                    np.zeros((len(self.carriers), 0), np.uint8), final=final)
-            return self.process_bits(self._mixer_bits(raw, fmt, 0, None),
-                                     final=final)
+            return raw, fmt, 0, None
         BLOCK, L_, M_ = blk
         W = 2 * BLOCK
         if self._mx_rem is None:
@@ -360,9 +420,7 @@ class MultiCarrierReceiver:
             self._mx_rem = data
             if final:
                 self._reset_mx_stream()
-                return self.process_bits(
-                    np.zeros((len(self.carriers), 0), np.uint8), final=True)
-            return [c.stats for c in self.carriers]
+            return None
         self._mx_rem = data[usable * k:]
         chunk = data[: usable * k]
         first = self._mx_hist is None
@@ -381,8 +439,7 @@ class MultiCarrierReceiver:
         self._mx_pos += usable
         if final:
             self._reset_mx_stream()
-        return self.process_bits(self._mixer_bits(feed, fmt, base, keep),
-                                 final=final)
+        return feed, fmt, base, keep
 
     def _reset_mx_stream(self):
         self._mx_hist = None
@@ -397,8 +454,7 @@ class MultiCarrierReceiver:
         [C, keep]; a device tensor on the native plane, host numpy on
         the Python plane."""
         python = self.control_plane == "python"
-        with trace.timer("pyplane.frontend") if python \
-                else contextlib.nullcontext():
+        with trace.span("pyplane.frontend" if python else "chunk.frontend"):
             re, im = _iq_to_ri(fmt, torch.as_tensor(np.asarray(feed))
                                .to(self.device))
             cr, ci = channelizer.channelize_ri(re, im, self.offsets,
@@ -410,6 +466,7 @@ class MultiCarrierReceiver:
                 bits = bits.cpu().numpy().astype(np.uint8)
         return bits
 
+    @trace.spanned("call")
     def process_bits(self, bits, final: bool = True) -> list[RxStats]:
         """Per-carrier hard bits [C, T] -> per-carrier decode stats.
 
@@ -423,19 +480,32 @@ class MultiCarrierReceiver:
             bits = np.asarray(bits)
         if bits.ndim != 2 or bits.shape[0] != len(self.carriers):
             raise ValueError("bits must be [n_carriers, T]")
+        return self._process_bits(bits, final)
+
+    def _process_bits(self, bits, final: bool) -> list[RxStats]:
+        """process_bits inside a call that is already traced."""
         if self.control_plane == "native":
-            self._prefetch_pending()
-            return self._native_drain(self._fast.submit(bits), final)
+            with trace.span("chunk.submit", fastpath.next_seq()) as sp:
+                h = self._submit(bits)
+                if h is None and sp is not None:
+                    sp.chunk = None     # nothing dispatched
+            return self._native_drain(h, final)
         if isinstance(bits, torch.Tensor):
             bits = bits.cpu().numpy()
         return self._process_bits_python(np.asarray(bits, np.uint8))
+
+    def _submit(self, bits):
+        """Native plane: start the oldest pending bundle's copy, then
+        dispatch one chunk of per-carrier bits; its handle, or None."""
+        self._prefetch_pending()
+        return self._fast.submit(bits)
 
     def _process_bits_python(self, bits) -> list[RxStats]:
         """Python control plane: all carriers synchronise in one device
         scan and FEC-decode in one device program; the byte-scale
         upper-MAC walk runs per carrier on the host."""
         self._buf = np.concatenate([self._buf, bits & 1], axis=1)
-        with trace.timer("pyplane.sync"):
+        with trace.span("pyplane.sync"):
             slots, events = self.sync.scan(self._buf,
                                            base_offset=self._buf_base)
         # rebase the absolute offsets to the buffer for slicing/decoding
@@ -445,11 +515,11 @@ class MultiCarrierReceiver:
                 s.offset -= base
             for e in ev:
                 e.offset -= base
-        with trace.timer("pyplane.decode"):
+        with trace.span("pyplane.decode"):
             decoded = decode_slots_multi(
                 list(self._buf), slots,
                 [rx.scramb_init for rx in self.carriers], device=self.device)
-        with trace.timer("pyplane.walk"):
+        with trace.span("pyplane.walk"):
             for c, rx in enumerate(self.carriers):
                 rx._ev_ptr = 0
                 for s, d in zip(slots[c], decoded[c]):
@@ -576,8 +646,16 @@ class MultiCarrierReceiver:
         recs = np.column_stack([
             d["carrier"], d["kind"], d["okA"], d["okB"], d["delta"],
             np.arange(n, dtype=np.int32), d["slot_ref"]])
-        evd = self.native_cp.walk2(d["payload"].reshape(-1), recs,
-                                   d["tail"])
+        with trace.span("chunk.walk", h.seq):
+            evd = self.native_cp.walk2(d["payload"].reshape(-1), recs,
+                                       d["tail"])
+        with trace.span("chunk.egress", h.seq):
+            self._egress(h, d, evd)
+
+    def _egress(self, h, d, evd):
+        """After the walk: the native events kept, the per-carrier stats,
+        TDMA time and cell identity, then GSMTAP, the TL-SDU egress and
+        the traffic dumps."""
         self.native_events.append(evd)
 
         B = len(self.carriers)
