@@ -61,10 +61,15 @@ Phases (one JSON line each):
               tetra_tpu_torch.receiver.main --rtltcp --carriers <64
               offsets> -k runs warm and timed on each plane: every
               carrier = the JAX mixer record, 4 log digests equal,
-              Python plane = native plane, K1 launched on both;
+              Python plane = native plane, K1 and M1 launched on
+              both, and with tracing on every channelize_ri call of
+              the timed pass counted mixer.fused (none mixer.plain);
               wall_s, realtime_carriers and the front end's device
-              split (mix, FIR, resample, demod; CUDA events on one
-              chunk) with its share of the pass.
+              split on one chunk (CUDA events): M1 (csrc/mixer_bank.cu,
+              the whole channelizer) beside the plain stages it
+              replaces (mix, FIR, resample) and the demod, M1 within
+              TOL_M1 of the plain stages and the demod's bits equal;
+              M1's bound (mixer_bound) and its share of the pass.
      scan     scan.scan(confirm=True) on the JAX scan test's 400 kHz
               two-cell u8 capture on the card and the CPU, and the CLI's
               --carriers auto on both planes and devices (the on-grid
@@ -217,8 +222,10 @@ for S1 (sync_scan) its launches per call and on the snr8, Python-plane,
 mixer and mesh passes, the maps' and S1's own times, and library_ms
 null with the reason (no PyTorch call computes this state machine),
 for K3 its share of the bound, its time-major and subset times, the
-layout copies and wide-512's time; for K1, K2,
-K3, K4, K5, K6 and S1 also resident blocks
+layout copies and wide-512's time, for M1 (mixer_bank) its launches on
+the mixer pass's two planes, the plain stages' time and its share of the
+bound; for K1, K2,
+K3, K4, K5, K6, S1 and M1 also resident blocks
 per SM, registers per thread and shared bytes per block at the main
 path's shape, for K2 dft_only_ms and for K6 empty_launch_ms), the
 nvidia-smi line, and last
@@ -255,6 +262,8 @@ HBM_BPS = 3.35e12   # H100 SXM device memory rate (bytes/s)
 F32_FLOPS = 67e12
 F32_OPS = F32_FLOPS / 2
 INT32_OPS = F32_FLOPS / 4
+F64_FLOPS = 34e12   # float64 outside the tensor cores (data sheet)
+TOL_M1 = 1e-5       # M1: max |kernel - plain| <= TOL_M1 * max |plain|
 # raw type-4 bits of the voice pass that may differ from the JAX bits
 # path's: the wideband demod's bit errors on this clean capture (1.1e-6
 # measured on an H100 80GB HBM3 at 700 W); traffic bits carry no CRC
@@ -305,6 +314,28 @@ def k2_bound(n_chan: int, T: int, frames: int, J: int = 16) -> dict:
     return bound(8 * T + 4 * (J * n_chan + 2 * n_chan) + 8 * frames * n_chan,
                  frames * n_chan * (4 * J + 5 * math.log2(n_chan)),
                  F32_FLOPS)
+
+
+# float64 operations of M1's oscillator per output: the product f*n,
+# the remainder (a quotient, its product and difference), the sign fix
+# and the scaling (6), and cos and sin (~12 multiply-adds each after
+# their range reduction: 48)
+M1_OSC_FLOPS = 6 + 48
+
+
+def mixer_bound(C: int, T: int, n_out: int, n_filt: int, K: int) -> dict:
+    """M1 on one call: the planes in (8 B a sample), the tables once
+    (n_filt x K complex taps per carrier, the offsets), [C, n_out]
+    complex out; per output K complex multiply-adds (8 flops each) and
+    the rotation (6) in f32, and the oscillator in float64
+    (M1_OSC_FLOPS), on their own pipes: the larger of the three
+    times."""
+    nbytes = 8 * T + 8 * n_filt * K * C + 8 * C + 8 * C * n_out
+    f32, f64 = C * n_out * (8 * K + 6), C * n_out * M1_OSC_FLOPS
+    b = bound(nbytes, f32, F32_FLOPS)
+    if f64 / F64_FLOPS * 1e3 > b["bound_ms"]:
+        b = bound(nbytes, f64, F64_FLOPS)
+    return {**b, "f32_flops": f32, "f64_flops": f64}
 
 
 def k5_bound(n: int, sps: int = 2) -> dict:
@@ -1448,16 +1479,19 @@ def mixer_cli(u8, fs: float, carriers: str, ks_path, plane: str, dev,
 
 
 def mixer_split(dev, u8, offsets, fs: float) -> dict:
-    """Device time (CUDA events, mean of 5 after a warm-up) of each stage
+    """Device time (CUDA events, mean of 5 after a warm-up; M1 of 20)
     of the mixer front end on one continuation chunk of the mixer pass
-    (the 2 x BLOCK history + the BLOCK-aligned 0.5 s): oscillator mix,
-    127-tap FIR (both planes), resampler (both planes), hard demod at
-    os=4; and the front end's time per pass, estimated from the chunk's
+    (the 2 x BLOCK history + the BLOCK-aligned 0.5 s): kernel M1
+    (channelize_ri on the card) beside the plain stages it replaced
+    (oscillator mix, 127-tap FIR and resampler, both planes), and the
+    hard demod at os=4; M1 against the plain stages (max |d| <=
+    TOL_M1 * max |plain|, the demod's bits equal), its bound and launch
+    shape; and the front end's time per pass, estimated from the chunk's
     cost per new sample."""
     import numpy as np
     import torch
     from profile_torch_demod import cuda_ms
-    from tetra_tpu_torch import prod_fixture as P
+    from tetra_tpu_torch import kernels, prod_fixture as P
     from tetra_tpu_torch.io.sdr import RtlTcpSource
     from tetra_tpu_torch.phy import channelizer as ch, dqpsk
     from tetra_tpu_torch.rx_multi import mixer_block
@@ -1474,24 +1508,39 @@ def mixer_split(dev, u8, offsets, fs: float) -> dict:
     fr, fi = ch._fir_real(mr, taps), ch._fir_real(mi, taps)
     cr = ch._resample_ri_one(fr, n_feed, fs, ch.DEMOD_RATE)
     ci = ch._resample_ri_one(fi, n_feed, fs, ch.DEMOD_RATE)
+    m1 = ch.channelize_ri(re, im, offsets, fs, base=base)
     ms = {"mix": cuda_ms(lambda: ch._mix_ri(re, im, offsets, fs, base), 5),
           "fir": cuda_ms(lambda: (ch._fir_real(mr, taps),
                                   ch._fir_real(mi, taps)), 5),
           "resample": cuda_ms(lambda: (
               ch._resample_ri_one(fr, n_feed, fs, ch.DEMOD_RATE),
               ch._resample_ri_one(fi, n_feed, fs, ch.DEMOD_RATE)), 5),
-          "demod": cuda_ms(lambda: dqpsk.demodulate_hard_ri(cr, ci, sps=2,
+          "m1": cuda_ms(lambda: ch.mixer_bank(re, im, offsets, fs,
+                                              base=base), 20),
+          "demod": cuda_ms(lambda: dqpsk.demodulate_hard_ri(*m1, sps=2,
                                                            os=4), 5)}
-    # the composed stages are channelize_ri + the demod
-    bits = dqpsk.demodulate_hard_ri(cr, ci, sps=2, os=4)
-    whole = dqpsk.demodulate_hard_ri(*ch.channelize_ri(
-        re, im, offsets, fs, base=base), sps=2, os=4)
-    if not torch.equal(bits, whole):
-        raise AssertionError("mixer_split: the stages differ from "
-                             "channelize_ri")
-    chunk_ms = sum(ms.values())
+    d, scale = rel_err(m1, (cr, ci))
+    bits_equal = torch.equal(dqpsk.demodulate_hard_ri(cr, ci, sps=2, os=4),
+                             dqpsk.demodulate_hard_ri(*m1, sps=2, os=4))
+    if d > TOL_M1 * scale or not bits_equal:
+        raise AssertionError(f"mixer_split: M1 against the plain stages: "
+                             f"max|d| {d} of {scale}, bits equal "
+                             f"{bits_equal}")
+    G, _, b, L, M, E, K, _ = ch._fused_tables(
+        fs, tuple(np.asarray(offsets, np.float32).tolist()), 127,
+        ch.DEMOD_RATE)
+    QB, RB, SPAN, TP, _ = ch._fused_shape(L, M, b, K)
+    bnd = mixer_bound(len(offsets), n_feed, m1[0].shape[1], M + E, K)
+    chunk_ms = ms["m1"] + ms["demod"]
     return {"feed_samples": n_feed, "new_samples": new,
-            "carriers": len(offsets), "ms": ms, "chunk_ms": chunk_ms,
+            "carriers": len(offsets), "ms": ms,
+            "plain_ms": ms["mix"] + ms["fir"] + ms["resample"],
+            "m1_max_abs_err": d, "m1_scale": scale,
+            "m1_bits_equal": bits_equal, **bnd,
+            "m1_share_of_bound": bnd["bound_ms"] / ms["m1"],
+            "m1_tile": {"QB": QB, "RB": RB, "SPAN": SPAN, "TP": TP},
+            "m1_occupancy": kernels.occupancy("tt_mixer_bank", SPAN, TP),
+            "chunk_ms": chunk_ms,
             "pass_ms_est": chunk_ms * (len(u8) // 2) / new}
 
 
@@ -1543,6 +1592,7 @@ def run_mixer(ks_path: str, dev, fx: dict, fxm: dict, card: str,
         finally:
             trace.set_level(0)
         n_launch = launches()
+        counts = trace.counters()
         split = {k.split(".", 1)[1] + "_s": v["total_s"]
                  for k, v in trace.timings().items()
                  if k.startswith("pyplane.")}
@@ -1558,7 +1608,9 @@ def run_mixer(ks_path: str, dev, fx: dict, fxm: dict, card: str,
             "crc_wrong": sum(g[0][2] for g in got[plane]),
             "bursts": sum(g[0][0] for g in got[plane]),
             "carriers_differing_from_jax": differ,
-            "rate_command": dict(cmds).get(2), "launches": n_launch}
+            "rate_command": dict(cmds).get(2), "launches": n_launch,
+            "channelize_calls": {k: counts.get(k, 0)
+                                 for k in ("mixer.fused", "mixer.plain")}}
         if plane == "python":
             res[plane]["log_digests_equal_jax"] = {
                 c: P.digest(logs[c]) == d
@@ -1581,6 +1633,9 @@ def run_mixer(ks_path: str, dev, fx: dict, fxm: dict, card: str,
                   and res[p]["mixer_front_end"]
                   and res[p]["launches"]["viterbi_assembled"] > 0
                   and res[p]["launches"]["sync_scan"] > 0
+                  and res[p]["channelize_calls"]["mixer.plain"] == 0
+                  and res[p]["channelize_calls"]["mixer.fused"]
+                  == res[p]["launches"]["mixer_bank"] > 0
                   for p in ("python", "native"))
           and all(res["python"]["log_digests_equal_jax"].values()))
     if not ok:
@@ -3442,9 +3497,10 @@ def main() -> int:
         k5_occ = kernels.occupancy("tt_demod_fused_sps", 2)
         k6_occ = kernels.occupancy("tt_viterbi_decode", 3, 112)
         s1_occ = kernels.occupancy("tt_sync_scan")
+        m1_occ = mixer["split"]["m1_occupancy"]
         emit({"phase": "occupancy", "K1": k1_occ, "K4": k4_occ,
               "K2": k2_occ, "K3": k3_occ, "K3_time_major": k3_occ_rows,
-              "K5": k5_occ, "K6": k6_occ, "S1": s1_occ,
+              "K5": k5_occ, "K6": k6_occ, "S1": s1_occ, "M1": m1_occ,
               "K5_rates": {k: {f: v[f] for f in ("blocks_per_sm",
                                                  "regs_per_thread",
                                                  "smem_per_block")}
@@ -3596,7 +3652,23 @@ def main() -> int:
              "snr8_bound_ms": s1["snr8"]["bound_ms"],
              "snr8_bound_by": s1["snr8"]["bound_by"],
              "library_ms": None, "library_reason": s1["library_reason"],
-             **s1_occ}]})
+             **s1_occ},
+            {"name": "mixer_bank", "route": "cuda",
+             "source": "tetra_tpu_torch/csrc/mixer_bank.cu",
+             "replaces": "tetra_tpu/phy/channelizer.py channelize_ri (XLA "
+                         "ops, not a Pallas kernel); the port's cuDNN "
+                         "conv1d FIR",
+             "launches": mixer["native"]["launches"]["mixer_bank"],
+             "mixer_launches": mixer["python"]["launches"]["mixer_bank"],
+             "max_abs_err": mixer["split"]["m1_max_abs_err"],
+             "ms": mixer["split"]["ms"]["m1"],
+             "plain_ms": mixer["split"]["plain_ms"],
+             "share_of_bound": mixer["split"]["m1_share_of_bound"],
+             **{k: mixer["split"][k] for k in ("bound_ms", "bound_by",
+                                                "bound_bytes", "bound_ops",
+                                                "bound_peak", "f32_flops",
+                                                "f64_flops")},
+             "library_ms": None, **m1_occ}]})
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),

@@ -171,3 +171,152 @@ def test_synthesize_wideband_equals_jax():
     dur = 900 / 36_000.0
     bins = [round(c * 25_000.0 * dur) for c in chans]
     assert np.array_equal(P.synthesize_wideband_bins(base, bins, 2e5), fft)
+
+
+# kernel M1 (csrc/mixer_bank.cu): a lane sums this many outputs at once
+M1_RO = 8
+M1_RATES = [1.8e6, 2.4e6, 2.048e6]      # L/M = 50/1, 200/3, 512/9
+M1_BASES = [0, 100_000, (1 << 24) + 7]
+M1_OFFSETS = np.array([-31_400.0, 413_700.25], np.float32)
+
+
+def m1_model(re, im, offsets, fs: float, base: int, ntaps: int = 127):
+    """Kernel M1's arithmetic in numpy, from the wrapper's own tables
+    (_fused_tables) and tile (_fused_shape), summed in float64: block
+    t * n_ct + ct owns carrier tile ct and the tile of QB q-blocks x RB
+    phases t; its window of SPAN samples starts at max(Q0*L + b[R0], 0)
+    - pad, zero outside [0, T); groups of M1_RO outputs in phase-major
+    order, each output its window at max(p, 0) - pad with filter r (M +
+    m for the E first), rotated by the float64 oscillator at the
+    window's absolute index (cos and sin cast to float32), through the
+    [2, 32, TP] tile in q-major order. Returns (yr, yi) and asserts that
+    every output is written once, every window read lies in the block's
+    window and the resampler's reads never clamp at the far end."""
+    G, f, b, L, M, E, K, pad = P._fused_tables(
+        fs, tuple(np.asarray(offsets, np.float32).tolist()), ntaps, 36_000.0)
+    QB, RB, SPAN, TP, _ = P._fused_shape(L, M, b, K)
+    T = len(re)
+    n_out = P._resample_block_plan(T, fs, 36_000.0)[5]
+    C, Cp = len(offsets), G.shape[2]
+    n_q, n_rt, n_ct = -(-n_out // M), -(-M // RB), Cp // 32
+    x = re.astype(np.float64) + 1j * im.astype(np.float64)
+    Gd = G.astype(np.complex128)
+    y = np.zeros((2, C, n_out))
+    hits = np.zeros((C, n_out), np.int64)
+    for blk in range(-(-n_q // QB) * n_rt * n_ct):
+        t_, ct = divmod(blk, n_ct)
+        qt, rt = divmod(t_, n_rt)
+        Q0, R0 = qt * QB, rt * RB
+        Qn, Rn = min(QB, n_q - Q0), min(RB, M - R0)
+        ws = max(Q0 * L + int(b[R0]), 0) - pad
+        idx = ws + np.arange(SPAN)
+        win = np.where((idx >= 0) & (idx < T), x[np.clip(idx, 0, T - 1)], 0)
+        cs = ct * 32 + np.arange(32)
+        tile = np.zeros((2, 32, TP))
+        n_tile = Qn * Rn
+        for g in range(-(-n_tile // M1_RO)):
+            for j in range(M1_RO):
+                rr, qq = divmod(g * M1_RO + j, Qn)
+                q, r = Q0 + qq, R0 + rr
+                m = q * M + r
+                if g * M1_RO + j >= n_tile or m >= n_out:
+                    continue
+                p = q * L + int(b[r])
+                assert p + 7 <= T - 1
+                off = max(p, 0) - pad - ws
+                assert 0 <= off and off + K <= SPAN
+                fi = M + m if m < E else r
+                acc = (Gd[fi][:, cs] * win[off:off + K, None]).sum(0)
+                ph = np.remainder(f[cs] * float(base + ws + off), fs) \
+                    * (2.0 * np.pi / fs)
+                osc = (np.cos(ph).astype(np.float32)
+                       - 1j * np.sin(ph).astype(np.float32))
+                val = osc * acc
+                u = qq * Rn + rr
+                assert u < TP
+                tile[0, :, u], tile[1, :, u] = val.real, val.imag
+        for v in range(n_tile):
+            qq, rr = divmod(v, Rn)
+            m = (Q0 + qq) * M + R0 + rr
+            for k, c in enumerate(cs):
+                if m < n_out and c < C:
+                    y[:, c, m] = tile[:, k, v]
+                    hits[c, m] += 1
+    assert (hits == 1).all()
+    return y[0].astype(np.float32), y[1].astype(np.float32)
+
+
+def _m1_feeds(fs: float) -> list[int]:
+    """Feed lengths from shorter than the FIR to a few of the mixer
+    stream's BLOCKs."""
+    from tetra_tpu_torch.rx_multi import mixer_block
+    block = mixer_block(fs)[0]
+    return [60, 126, 1_000, block + 3, 3 * block + 77]
+
+
+@pytest.mark.parametrize("base", M1_BASES)
+@pytest.mark.parametrize("fs", M1_RATES)
+def test_m1_model_matches_plain(fs, base):
+    """The model of kernel M1 (composed, modulated taps; only the outputs
+    the resampler reads) equals the plain path (_mix_ri, _fir_real,
+    _resample_ri_one) within 1e-5 of max|plain|, including its zero-
+    padded FIR and replicated resampler edges, on feeds from shorter
+    than the FIR to a few BLOCKs."""
+    for T in _m1_feeds(fs):
+        re, im = _planes(T, T % 101 + base % 7)
+        want = [n(v) for v in P.channelize_ri_plain(
+            t(re), t(im), M1_OFFSETS, fs, base=base)]
+        got = m1_model(re, im, M1_OFFSETS, fs, base)
+        assert [g.shape for g in got] == [w.shape for w in want]
+        if want[0].size:
+            scale = max(float(np.abs(w).max()) for w in want)
+            assert _err(got, want) <= 1e-5 * scale, \
+                (T, _err(got, want) / scale)
+
+
+@pytest.mark.parametrize("fs", M1_RATES + [96_000.0, 24_000.0, 25.6e6])
+def test_m1_tables_follow_the_block_plan(fs):
+    """_fused_tables places phase r where _resample_block_plan put W's
+    column r (all its weight inside the 8 rows from b[r]); the E edge
+    filters are the outputs whose first FIR read lies before the feed;
+    the tile fits a block and holds every output's window."""
+    W, bmin, width, L, M, _, _ = P._resample_block_plan(0, fs, 36_000.0)
+    G, f, b, L2, M2, E, K, pad = P._fused_tables(
+        fs, tuple(M1_OFFSETS.tolist()), 127, 36_000.0)
+    assert (L2, M2, K, pad) == (L, M, 134, 63)
+    assert G.shape == (M + E, K, 32) and not G[:, :, 2:].any()
+    for r in range(M):
+        lo = b[r] - bmin
+        assert not W[:lo, r].any() and not W[lo + 8:, r].any()
+        assert np.abs(W[lo:lo + 8, r]).sum() > 0
+    p = [(e // M) * L + b[e % M] for e in range(E + 1)]
+    assert all(v < 0 for v in p[:E]) and p[E] >= 0
+    QB, RB, SPAN, TP, smem = P._fused_shape(L, M, b, K)
+    assert TP % 2 == 1 and TP >= QB * RB and smem <= P.M1_SMEM_MAX
+    # the uploaded copy: G as interleaved float32 pairs, carriers last
+    Gt, ft, bt, ints, shape = P._fused_constants(
+        torch.device("cpu"), fs, tuple(M1_OFFSETS.tolist()), 127, 36_000.0)
+    assert Gt.is_contiguous() and Gt.shape == (M + E, K, 64)
+    assert np.array_equal(n(Gt)[..., 0::2] + 1j * n(Gt)[..., 1::2], G)
+    assert np.array_equal(n(ft), f) and np.array_equal(n(bt), b)
+    assert ints == (L, M, E, K, pad) and shape == (QB, RB, SPAN, TP, smem)
+
+
+def test_channelize_ri_counts_the_plain_path():
+    """On the CPU every channelize_ri call takes the plain path and says
+    so in the counters (utils.trace, tracing on); nothing counts with
+    tracing off."""
+    from tetra_tpu_torch.utils import trace
+    re, im = _planes(3_000, 2)
+    trace.reset()
+    trace.set_level(1)
+    try:
+        P.channelize_ri(t(re), t(im), OFFSETS, 1.8e6)
+        P.channelize_ri(t(re), t(im), OFFSETS, 150_001.0)
+        counts = trace.counters()
+    finally:
+        trace.set_level(0)
+    assert counts.get("mixer.plain") == 2 and "mixer.fused" not in counts
+    trace.reset()
+    P.channelize_ri(t(re), t(im), OFFSETS, 1.8e6)
+    assert trace.counters() == {}

@@ -703,3 +703,144 @@ def test_s1_launch_count_does_not_grow_with_steps():
         assert sum("sync_scan" in nm for nm in names) == 1, names
         counts.append(len(names))
     assert counts[0] == counts[1] == counts[2], counts
+
+
+M1_OFFSETS = np.array([-31_400.0, 413_700.25], np.float32)
+
+
+def _m1_planes(T: int, seed: int, dev):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(T, generator=g).to(dev),
+            torch.randn(T, generator=g).to(dev))
+
+
+def _m1_err(got, want) -> float:
+    """max|got - want| over both planes, as a share of max|want|."""
+    d = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    return d / max(float(w.abs().max()) for w in want)
+
+
+@pytest.mark.parametrize("base", [0, 100_000, (1 << 24) + 7])
+@pytest.mark.parametrize("fs", [1.8e6, 2.4e6, 2.048e6])
+def test_m1_matches_plain(fs, base):
+    """M1 (csrc/mixer_bank.cu) against channelize_ri_plain on the card
+    within 1e-5 of max|plain|, on feeds from shorter than the FIR to a
+    few of the mixer stream's BLOCKs, 2 carriers; channelize_ri's
+    dispatch returns M1's planes."""
+    from tetra_tpu_torch.phy import channelizer as ch
+    from tetra_tpu_torch.rx_multi import mixer_block
+    dev = cuda_device()
+    block = mixer_block(fs)[0]
+    for T in (60, 126, 1_000, block + 3, 3 * block + 77):
+        re, im = _m1_planes(T, T + base % 11, dev)
+        want = ch.channelize_ri_plain(re, im, M1_OFFSETS, fs, base=base)
+        got = ch.mixer_bank(re, im, M1_OFFSETS, fs, base=base)
+        assert [g.shape for g in got] == [w.shape for w in want], T
+        if want[0].numel():
+            assert _m1_err(got, want) <= 1e-5, (T, _m1_err(got, want))
+        via = ch.channelize_ri(re, im, M1_OFFSETS, fs, base=base)
+        assert all(torch.equal(a, b) for a, b in zip(via, got))
+
+
+def test_m1_matches_plain_at_the_rtl64_shape():
+    """The rtl64 cell's large call: 64 carriers 1,370 Hz off the 25 kHz
+    grid, 904,100 samples at 1.8 MS/s, a continuation's base."""
+    from tetra_tpu_torch.phy import channelizer as ch
+    dev = cuda_device()
+    offsets = (25_000.0 * (np.arange(64) - 32) + 1_370.0).astype(np.float32)
+    re, im = _m1_planes(904_100, 3, dev)
+    want = ch.channelize_ri_plain(re, im, offsets, 1.8e6, base=895_900)
+    got = ch.mixer_bank(re, im, offsets, 1.8e6, base=895_900)
+    assert got[0].shape == want[0].shape == (64, 18_081)
+    assert _m1_err(got, want) <= 1e-5, _m1_err(got, want)
+
+
+def test_m1_demod_bits_equal_on_mixer64():
+    """mixer-64's capture (prod_fixture.mixer_capture, 64 off-grid
+    carriers at 1.8 MS/s) in one call: M1's channels within 1e-5 of the
+    plain path's, and demodulate_hard_ri's bits equal."""
+    from tetra_tpu_torch import prod_fixture as P
+    from tetra_tpu_torch.io.sdr import RtlTcpSource
+    from tetra_tpu_torch.phy import channelizer as ch
+    dev = cuda_device()
+    fx, fxm = P.load(), P.load_mixer()
+    bits = P.mixed_bits(P.MIXER_CARRIERS, 0.1, fx)[0][fxm["mixer_rows"]]
+    iq = RtlTcpSource._to_complex(P.mixer_capture(bits, fxm["mixer_bins"]))
+    re = torch.as_tensor(np.real(iq).astype(np.float32), device=dev)
+    im = torch.as_tensor(np.imag(iq).astype(np.float32), device=dev)
+    offsets = fxm["mixer_offsets"]
+    want = ch.channelize_ri_plain(re, im, offsets, P.MIXER_FS)
+    got = ch.mixer_bank(re, im, offsets, P.MIXER_FS)
+    assert _m1_err(got, want) <= 1e-5, _m1_err(got, want)
+    assert torch.equal(dqpsk.demodulate_hard_ri(*got, sps=2, os=4),
+                       dqpsk.demodulate_hard_ri(*want, sps=2, os=4))
+
+
+def test_m1_second_call_copies_nothing_to_the_card():
+    """After a key's first call, a channelize_ri call on the card is one
+    M1 launch: no other kernel, no copy (torch.profiler), and mixer.fused
+    counted."""
+    from torch.profiler import ProfilerActivity, profile
+    from tetra_tpu_torch.phy import channelizer as ch
+    from tetra_tpu_torch.utils import trace
+    dev = cuda_device()
+    re, im = _m1_planes(50_000, 9, dev)
+    offsets = np.array([-61_400.0, 13_700.0, 250_000.0], np.float32)
+    ch.channelize_ri(re, im, offsets, 1.8e6, base=7)
+    torch.cuda.synchronize()
+    before = ch.mixer_bank.launches
+    trace.reset()
+    trace.set_level(1)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ch.channelize_ri(re, im, offsets, 1.8e6, base=50_007)
+            torch.cuda.synchronize()
+        counts = trace.counters()
+    finally:
+        trace.set_level(0)
+    assert ch.mixer_bank.launches - before == 1
+    assert counts.get("mixer.fused") == 1 and "mixer.plain" not in counts
+    dev_names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(dev_names) == 1 and "mixer_bank" in dev_names[0], dev_names
+    assert not [e.name for e in prof.events()
+                if "Memcpy" in e.name or "StreamSynchronize" in e.name]
+
+
+def test_m1_non_rational_rate_counts_plain():
+    """A rate whose fs/36k is not L/M with M <= 64 takes the plain path
+    on the card: mixer.plain counted, no M1 launch."""
+    from tetra_tpu_torch.phy import channelizer as ch
+    from tetra_tpu_torch.utils import trace
+    dev = cuda_device()
+    re, im = _m1_planes(20_000, 4, dev)
+    before = ch.mixer_bank.launches
+    trace.reset()
+    trace.set_level(1)
+    try:
+        out = ch.channelize_ri(re, im, M1_OFFSETS, 150_001.0)
+        counts = trace.counters()
+    finally:
+        trace.set_level(0)
+    assert counts.get("mixer.plain") == 1 and "mixer.fused" not in counts
+    assert ch.mixer_bank.launches == before
+    assert out[0].device.type == "cuda" and out[0].shape[0] == 2
+
+
+def test_m1_rejects_bad_arguments():
+    from tetra_tpu_torch.phy.channelizer import mixer_bank
+    dev = cuda_device()
+    x = torch.zeros(5_000, device=dev)
+    with pytest.raises(TypeError):
+        mixer_bank(x.double(), x.double(), M1_OFFSETS, 1.8e6)
+    with pytest.raises(ValueError):
+        mixer_bank(x, x[:4_000], M1_OFFSETS, 1.8e6)
+    with pytest.raises(ValueError):
+        mixer_bank(x, x.cpu(), M1_OFFSETS, 1.8e6)
+    with pytest.raises(ValueError, match="contiguous"):
+        mixer_bank(x[::2], x[::2], M1_OFFSETS, 1.8e6)
+    with pytest.raises(ValueError):
+        mixer_bank(x[None], x[None], M1_OFFSETS, 1.8e6)
+    with pytest.raises(ValueError, match="L / M"):
+        mixer_bank(x, x, M1_OFFSETS, 150_001.0)

@@ -33,6 +33,8 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
+_D = ctypes.c_double
 # exported launcher name -> ctypes argtypes (all return int = cudaError_t,
 # except those in _RESTYPES)
 _SIGNATURES = {
@@ -57,6 +59,9 @@ _SIGNATURES = {
     "tt_sync_scan": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "tt_sync_scan_constants": [_P],
     "tt_sync_scan_occupancy": [_P],
+    "tt_mixer_bank": [_P, _P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _LL, _D, _D, _I, _I, _I, _I, _P, _P, _P],
+    "tt_mixer_bank_occupancy": [_I, _I, _P],
     "tt_error_string": [_I],
 }
 
@@ -140,9 +145,9 @@ def stream_ptr(device: torch.device) -> int:
 
 
 def occupancy(name: str, *args: int) -> dict:
-    """Launch shape of a kernel (K1, K2, K3, K4, K5, K6, S1; K5 at any rate
-    as "tt_demod_fused_sps" with the rate as argument) at the given
-    arguments: the exported `<name>_occupancy` fills resident blocks per
+    """Launch shape of a kernel (K1, K2, K3, K4, K5, K6, S1, M1; K5 at
+    any rate as "tt_demod_fused_sps" with the rate as argument) at the
+    given arguments: the exported `<name>_occupancy` fills resident blocks per
     SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers per
     thread and shared bytes per block (cudaFuncGetAttributes plus the
     dynamic size) and threads per block."""
@@ -179,6 +184,7 @@ def wrappers() -> dict:
     from tetra_tpu_torch.ops.viterbi_assembled import decode_assembled
     from tetra_tpu_torch.ops.viterbi_decode import decode_k6
     from tetra_tpu_torch.ops.viterbi_segmented import decode_segmented_k4
+    from tetra_tpu_torch.phy.channelizer import mixer_bank
     from tetra_tpu_torch.phy.demod_fused import demod_fused
     from tetra_tpu_torch.phy.pfb import pfb_channelize_rows, resample_rows
     from tetra_tpu_torch.phy.sync_vec import sync_scan
@@ -188,7 +194,8 @@ def wrappers() -> dict:
             "viterbi_segmented": decode_segmented_k4,
             "viterbi_decode": decode_k6,
             "demod_fused": demod_fused,
-            "sync_scan": sync_scan}
+            "sync_scan": sync_scan,
+            "mixer_bank": mixer_bank}
 
 
 def reset_launches() -> None:

@@ -12,6 +12,12 @@ mix with a bank of oscillators [C, T], 127-tap low-pass FIR
 input edges are replicated, unlike kernel K3, which zero-fills). Plain
 PyTorch in full float32 (resolve_device turns TF32 off).
 
+On the card, a rational fs/36k runs as kernel M1 (csrc/mixer_bank.cu,
+`mixer_bank`): mix, FIR and resampler in one launch that computes only
+the outputs the resampler keeps, from composed taps built once per
+(fs, offsets, ntaps) and kept on the card (`_fused_tables`). CPU
+tensors and other rates take the plain path (`channelize_ri_plain`).
+
 The oscillator deviates from tetra_tpu on purpose: its phase at absolute
 sample n = base + i is 2*pi*((f*n) mod fs)/fs in float64, and cos/sin
 are taken in float64 before the cast to float32. It depends on n alone,
@@ -27,12 +33,15 @@ import math
 import numpy as np
 import torch
 
+from tetra_tpu_torch import kernels
 from tetra_tpu_torch.device import resolve_device
 from tetra_tpu_torch.phy.dqpsk import _fir_real
+from tetra_tpu_torch.utils import trace
 
 __all__ = ["DEMOD_RATE", "_N_PHASES", "design_lowpass", "_resample_plan",
            "_rational_ratio", "_resample_block_plan", "_mix_ri",
-           "_resample_ri_one", "channelize_ri", "channelize",
+           "_resample_ri_one", "_fused_tables", "_fused_shape",
+           "mixer_bank", "channelize_ri_plain", "channelize_ri", "channelize",
            "synthesize_wideband_bins", "synthesize_wideband_fft",
            "synthesize_wideband"]
 
@@ -159,6 +168,152 @@ def _resample_ri_one(x, n_in: int, fs: float, out_rate: float,
     return (x[..., torch.as_tensor(gather, device=x.device)] * coefs).sum(-1)
 
 
+# kernel M1's block (csrc/mixer_bank.cu): 32 carriers, 8 outputs a lane
+# at once; a tile's shared bytes aim at 64 KB (3 blocks an SM) and may
+# not pass the 227 KB a block can hold
+M1_CT, M1_RO, M1_SMEM_TARGET, M1_SMEM_MAX = 32, 8, 64 * 1024, 227 * 1024
+_NTP = 8                    # taps a phase of the resampler's block plan
+
+
+@functools.lru_cache(maxsize=16)
+def _fused_tables(fs: float, offsets: tuple, ntaps: int = 127,
+                  out_rate: float = DEMOD_RATE):
+    """Kernel M1's constants for a rational fs/out_rate (host numpy):
+    (G, f, b, L, M, E, K, pad).
+
+    Output m = q*M + r reads FIR outputs p + k, k < 8, p = q*L + b[r],
+    with column r of the block plan's W, each clamped to the feed's
+    start (the far end never clamps: output m reads at most FIR output
+    floor(m*L/M) + 4 <= T - 5). As the mix commutes with the filters,
+    output m is exp(-j phase(base + s)) * sum_i G[fi, i, c] * x[s + i],
+    s = max(p, 0) - pad, pad = ntaps // 2, i < K = ntaps + 7: G [M + E,
+    K, Cp] complex64 holds each filter (fi = r, or M + m for the E first
+    outputs, whose reads clamp) composed with the FIR's taps in float64
+    and modulated by carrier c's oscillator at i (carriers padded with
+    zeros to Cp, a multiple of 32); f [Cp] float64 offsets; b [M] int32."""
+    W, bmin, _, L, M, _, _ = _resample_block_plan(0, fs, out_rate)
+    # b as _resample_block_plan places the columns (skew 0)
+    b = np.floor(np.arange(M) * (fs / out_rate)).astype(np.int64) \
+        - (_NTP // 2 - 1)
+    h = np.stack([W[b[r] - bmin: b[r] - bmin + _NTP, r]
+                  for r in range(M)]).astype(np.float64)
+    tr = design_lowpass(fs, CUTOFF, ntaps)[::-1].astype(np.float64)
+    K, pad = ntaps + _NTP - 1, ntaps // 2
+
+    def composed(r: int, p: int) -> np.ndarray:
+        g = np.zeros(K)
+        for k in range(_NTP):
+            o = max(p + k, 0) - max(p, 0)
+            g[o:o + ntaps] += h[r, k] * tr
+        return g
+
+    E = 0
+    while (E // M) * L + b[E % M] < 0:
+        E += 1
+    filt = np.stack([composed(r, 0) for r in range(M)]
+                    + [composed(e % M, (e // M) * L + b[e % M])
+                       for e in range(E)])
+    C = len(offsets)
+    f = np.zeros(-(-C // M1_CT) * M1_CT)
+    f[:C] = np.asarray(offsets, np.float32)
+    ph = np.remainder(f[:, None] * np.arange(K, dtype=np.float64), fs) \
+        * (2.0 * math.pi / fs)
+    G = np.ascontiguousarray(filt[:, :, None] * np.exp(-1j * ph.T)[None],
+                             np.complex64)
+    G[:, :, C:] = 0
+    return G, f, b.astype(np.int32), L, M, E, K, pad
+
+
+def _fused_shape(L: int, M: int, b, K: int):
+    """Kernel M1's tile (QB, RB, SPAN, TP, smem): a block sums QB
+    q-blocks x RB phases of its 32 carriers from a window of SPAN input
+    samples (every output's K samples, from the tile's first), through
+    a [2, 32, TP] output tile; smem its shared bytes. Halves QB, then RB,
+    until the tile fits M1_SMEM_TARGET (M1_SMEM_MAX at one output)."""
+    QB, RB = M1_RO * max(1, round(8 / M)), M
+    while True:
+        spread = max(int(b[min(r0 + RB, M) - 1] - b[r0])
+                     for r0 in range(0, M, RB))
+        SPAN = (QB - 1) * L + spread + K
+        TP = (QB * RB) | 1
+        smem = 8 * SPAN + 4 * 2 * M1_CT * TP
+        if smem <= M1_SMEM_TARGET:
+            return QB, RB, SPAN, TP, smem
+        if QB > 1:
+            QB //= 2
+        elif RB > 1:
+            RB = -(-RB // 2)
+        elif smem <= M1_SMEM_MAX:
+            return QB, RB, SPAN, TP, smem
+        else:
+            raise ValueError(f"mixer_bank: {K} composed taps do not fit a "
+                             "block's shared memory")
+
+
+@functools.lru_cache(maxsize=16)
+def _fused_constants(device: torch.device, fs: float, offsets: tuple,
+                     ntaps: int, out_rate: float):
+    """_fused_tables on `device` (uploaded once per key) with the tile."""
+    G, f, b, L, M, E, K, pad = _fused_tables(fs, offsets, ntaps, out_rate)
+    return (torch.as_tensor(G.view(np.float32)).to(device),
+            torch.as_tensor(f).to(device), torch.as_tensor(b).to(device),
+            (L, M, E, K, pad), _fused_shape(L, M, b, K))
+
+
+def mixer_bank(re, im, offsets_hz, fs: float, out_rate: float = DEMOD_RATE,
+               ntaps: int = 127, base: int = 0):
+    """Kernel M1: channelize_ri_plain's function on the card for a
+    rational fs/out_rate, one launch for both planes and every carrier
+    (re, im float32 [T], contiguous, on one card; raises otherwise).
+    The constants are uploaded on a key's first call only, so later
+    calls copy nothing to the card."""
+    kernels.require_cuda(re, "re", torch.float32, 1)
+    kernels.require_cuda(im, "im", torch.float32, 1)
+    if im.shape != re.shape or im.device != re.device:
+        raise ValueError("mixer_bank: re and im must match in shape and "
+                         "device")
+    fs, out_rate = float(fs), float(out_rate)
+    T = re.shape[0]
+    plan = _resample_block_plan(T, fs, out_rate)
+    if plan is None:
+        raise ValueError(f"mixer_bank: {fs} / {out_rate} is not L / M "
+                         "with M <= 64")
+    offsets = tuple(np.asarray(offsets_hz, np.float32).reshape(-1).tolist())
+    n_out = plan[5]
+    yr = torch.empty((len(offsets), n_out), dtype=torch.float32,
+                     device=re.device)
+    yi = torch.empty_like(yr)
+    if n_out == 0 or not offsets:
+        return yr, yi
+    G, f, b, (L, M, E, K, pad), (QB, RB, SPAN, TP, _) = _fused_constants(
+        re.device, fs, offsets, int(ntaps), out_rate)
+    rc = kernels.lib().tt_mixer_bank(
+        re.data_ptr(), im.data_ptr(), T, G.data_ptr(), f.data_ptr(),
+        b.data_ptr(), K, pad, f.shape[0], len(offsets), L, M, E, n_out,
+        int(base), fs, 2.0 * math.pi / fs, QB, RB, SPAN, TP, yr.data_ptr(),
+        yi.data_ptr(), kernels.stream_ptr(re.device))
+    kernels.check(rc, "tt_mixer_bank")
+    mixer_bank.launches += 1
+    return yr, yi
+
+
+mixer_bank.launches = 0
+
+
+def channelize_ri_plain(re, im, offsets_hz, fs: float,
+                        out_rate: float = DEMOD_RATE, ntaps: int = 127,
+                        base: int = 0):
+    """channelize_ri in plain PyTorch on the planes' device: _mix_ri's
+    [C, T] planes, the FIR over every sample, the resampler."""
+    T = re.shape[-1]
+    mr, mi = _mix_ri(re, im, offsets_hz, fs, base)
+    taps = design_lowpass(float(fs), CUTOFF, ntaps)
+    fr, fi = _fir_real(mr, taps), _fir_real(mi, taps)
+    del mr, mi
+    return (_resample_ri_one(fr, T, float(fs), out_rate),
+            _resample_ri_one(fi, T, float(fs), out_rate))
+
+
 def channelize_ri(re, im, offsets_hz, fs: float,
                   out_rate: float = DEMOD_RATE, ntaps: int = 127,
                   base: int = 0, device=None):
@@ -167,20 +322,22 @@ def channelize_ri(re, im, offsets_hz, fs: float,
     capture centre): mix, low-pass, resample. base: the absolute sample
     index of re[0] in a longer stream. Tensors stay on their device;
     numpy planes go to `device` (the card unless the caller asks for
-    the CPU)."""
+    the CPU). On a card with a rational fs/out_rate: kernel M1
+    (mixer_bank); else channelize_ri_plain. Counts mixer.fused or
+    mixer.plain (utils.trace)."""
     if isinstance(re, torch.Tensor):
         dev = re.device
     else:
         dev = resolve_device(device)
     re = torch.as_tensor(re, dtype=torch.float32, device=dev)
     im = torch.as_tensor(im, dtype=torch.float32, device=dev)
-    T = re.shape[-1]
-    mr, mi = _mix_ri(re, im, offsets_hz, fs, base)
-    taps = design_lowpass(float(fs), CUTOFF, ntaps)
-    fr, fi = _fir_real(mr, taps), _fir_real(mi, taps)
-    del mr, mi
-    return (_resample_ri_one(fr, T, float(fs), out_rate),
-            _resample_ri_one(fi, T, float(fs), out_rate))
+    if dev.type == "cuda" and _resample_block_plan(
+            re.shape[-1], float(fs), out_rate) is not None:
+        trace.count("mixer.fused")
+        return mixer_bank(re.contiguous(), im.contiguous(), offsets_hz, fs,
+                          out_rate, ntaps, base)
+    trace.count("mixer.plain")
+    return channelize_ri_plain(re, im, offsets_hz, fs, out_rate, ntaps, base)
 
 
 def channelize(iq, offsets_hz, fs: float, out_rate: float = DEMOD_RATE,
