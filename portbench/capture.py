@@ -12,6 +12,16 @@ starts mid-burst), which carriers carry the TEA1 row, and the noise of
 a u8 capture; every seed gives the same rows, the same number of
 encrypted carriers and the same lengths, so the work does not change
 with the seed, only its order.
+
+Two optional keys of a traffic mix describe the air: `on_air`, the
+share of the configured carriers that transmit (round(on_air x
+carriers), at least one, drawn from the seed; only they are synthesised
+and `enc_frac` applies to them), and `snr_db`, complex AWGN added before
+quantisation whose power in one 25 kHz channel is the mean on-air
+carrier's power / 10^(snr_db/10) (prod_fixture.wideband_capture's
+definition). Their draws come after every draw of the clean capture
+and only where the key is present, so a mix without them gives the
+same bytes as before they existed.
 """
 from __future__ import annotations
 
@@ -197,40 +207,92 @@ def u8_iq(wide: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
     return u8
 
 
+def draw_on_air(n_car: int, share: float, gen: torch.Generator,
+                device) -> torch.Tensor:
+    """[n_car] bool: round(share * n_car) carriers, at least one, drawn
+    from the seed."""
+    n_on = max(1, int(round(n_car * share)))
+    on = torch.zeros(n_car, dtype=torch.bool, device=device)
+    on[torch.randperm(n_car, generator=gen, device=device)[:n_on]] = True
+    return on
+
+
+def draw_encrypted(on_air: torch.Tensor, enc_frac: float,
+                   gen: torch.Generator, device) -> torch.Tensor:
+    """[n_car] bool: round(enc_frac * on-air carriers), at least one,
+    of the on-air carriers, drawn from the seed."""
+    idx = torch.nonzero(on_air).flatten()
+    n_enc = max(1, int(round(len(idx) * enc_frac)))
+    enc = torch.zeros_like(on_air)
+    enc[idx[torch.randperm(len(idx), generator=gen,
+                           device=device)[:n_enc]]] = True
+    return enc
+
+
+def unit_noise(n: int, gen: torch.Generator, device) -> torch.Tensor:
+    """[n] complex64 with unit-variance Gaussian real and imaginary
+    parts (the real part drawn first)."""
+    return torch.complex(torch.randn(n, generator=gen, device=device),
+                         torch.randn(n, generator=gen, device=device))
+
+
+def add_awgn(wide: torch.Tensor, unit: torch.Tensor, snr_db: float,
+             n_on: int, fs: float) -> torch.Tensor:
+    """wide + AWGN whose power in one 25 kHz channel is the mean on-air
+    carrier's power (the capture's power over n_on) / 10^(snr_db/10),
+    fs / 25 kHz times that across the band; `unit` is unit_noise."""
+    p_car = float(torch.mean(wide.real.to(torch.float64) ** 2
+                             + wide.imag.to(torch.float64) ** 2)) / n_on
+    npow = fs / SPACING * p_car / 10 ** (snr_db / 10)
+    return wide + unit * math.sqrt(npow / 2)
+
+
 def make_capture(cfg: dict, mix: dict, seed: int, device) -> dict:
     """The cell's capture on `device`: {'samples' (uint8, iq4c: one a
-    complex sample; u8: two), 'bits' [C, L] uint8 (the transmitted
-    streams), 'rolls', 'encrypted', 'offsets_hz' (mixer configurations),
-    'stream_s' (seconds of stream a carrier)}."""
+    complex sample; u8: two), 'bits' [C, L] uint8 (the streams each
+    carrier would send), 'rolls', 'encrypted', 'on_air' [C] bool (the
+    carriers synthesised), 'snr_db' (the mix's, or None),
+    'offsets_hz' (mixer configurations), 'stream_s' (seconds of stream
+    a carrier)}."""
     dev = torch.device(device)
     gen = seed_generator(seed, dev)
     rows = load_rows(mix["rows"])
     n_car = int(cfg["carriers"])
     L = len(rows["plain"])
+    fs = float(cfg["fs"])
+    T_in = (L // 2) * 2            # modulate at sps 2: one sample a bit
+    T_out = int(round(T_in / DEMOD_RATE * fs))
     rolls, enc = draw_layout(n_car, L, rows["n_tail"], float(mix["enc_frac"]),
                              gen, dev)
+    if cfg["format"] == "u8":
+        u8_noise = unit_noise(T_out, gen, dev) * float(cfg["u8_noise"])
+    elif cfg["format"] != "iq4c":
+        raise ValueError(f"unknown capture format {cfg['format']!r}")
+    # the air's draws, after every draw of the clean capture
+    on = torch.ones(n_car, dtype=torch.bool, device=dev)
+    if "on_air" in mix:
+        on = draw_on_air(n_car, float(mix["on_air"]), gen, dev)
+        enc = draw_encrypted(on, float(mix["enc_frac"]), gen, dev)
+    snr_db = mix.get("snr_db")
+    awgn = unit_noise(T_out, gen, dev) if snr_db is not None else None
     bits = rolled_bits(rows, rolls, enc, dev)
-    base = modulate(bits, sps=2)
-    T_in = base.shape[1]
-    fs = float(cfg["fs"])
-    T_out = int(round(T_in / DEMOD_RATE * fs))
-    out = {"bits": bits, "rolls": rolls, "encrypted": enc,
-           "stream_s": T_out / fs}
+    sent = torch.nonzero(on).flatten()
+    base = modulate(bits[sent], sps=2)
+    out = {"bits": bits, "rolls": rolls, "encrypted": enc, "on_air": on,
+           "snr_db": snr_db, "stream_s": T_out / fs}
     if cfg["front_end"] == "pfb":
-        bins = grid_bins(range(n_car), int(cfg["n_chan"]), T_in)
+        bins = grid_bins(sent.tolist(), int(cfg["n_chan"]), T_in)
     else:
         bins = offgrid_bins(n_car, float(cfg["skew_hz"]), T_in)
         out["offsets_hz"] = (bins / (T_in / DEMOD_RATE)).astype(np.float32)
+        bins = bins[sent.cpu().numpy()]
     wide = synthesize_bins(base, bins, T_out)
     del base
+    if awgn is not None:
+        wide = add_awgn(wide, awgn, float(snr_db), len(sent), fs)
+        del awgn
     if cfg["format"] == "iq4c":
         out["samples"] = quantize_iq4c(wide)
-    elif cfg["format"] == "u8":
-        nz = torch.complex(
-            torch.randn(T_out, generator=gen, device=dev),
-            torch.randn(T_out, generator=gen, device=dev)) \
-            * float(cfg["u8_noise"])
-        out["samples"] = u8_iq(wide, nz)
     else:
-        raise ValueError(f"unknown capture format {cfg['format']!r}")
+        out["samples"] = u8_iq(wide, u8_noise)
     return out

@@ -4,6 +4,21 @@ the window) against the plain reference worked out again from the same
 capture (`portbench.reference`), and every pass of the window against
 the check pass.
 
+The reference slices as the receiver does, hard or soft by the
+configuration's `demod`, with the sync at the receiver's tolerance (2 on
+a soft pipeline, 0 else). The program's slicer output is compared with
+the reference's decision by decision. A decision may differ only where
+the reference's value lies so near a slicer threshold that the
+program's phasors, as far as they lie from the reference's on that
+carrier in that feed, could fall on its other side (a tie: a hard bit
+whose phasor component lies within that distance of zero, a soft value
+one step off whose scaled value lies within its reach of the half step
+between the two); every other difference is a fault of the slicer
+(decisions_far). The sync, FEC and walk then run on the reference's
+decisions with the program's taken at the ties, so that a rounding tie
+on a noisy capture cannot reach a CRC while a fault in any of those
+stages still shows in the exact counts.
+
 Numbers compared, each beside its limit (`LIMITS`, set from the
 readings PERF.md lists; the exact ones have the limit 0):
 
@@ -16,6 +31,9 @@ readings PERF.md lists; the exact ones have the limit 0):
   each feed), measured so against the float64 reference's: the matched
   filter, the phasors and the timing pick, which the decoded bits of a
   clean capture do not see;
+- decisions_far: the slicer's hard bits or soft values (each feed,
+  every carrier) that differ from the float64 reference's where no tie
+  explains it (above);
 - feeds_differing: feeds whose sample span differs from the reference's
   overlap-save geometry;
 - slots_differing: emitted slots (by carrier and processed-burst index)
@@ -23,9 +41,10 @@ readings PERF.md lists; the exact ones have the limit 0):
   one side has, over every carrier;
 - bursts_differing, cells_differing: carriers whose processed-burst
   count, or cell identity (colour code, MCC, MNC), differs;
-- walk_differing: carriers of a sample drawn from the seed whose CRC-OK
-  and CRC-wrong counts or TL-SDU list (protocol discriminator, PDU type,
-  length, in order) differ from the reference walk's;
+- walk_differing: carriers of a sample drawn from the seed among those
+  on air, whose CRC-OK and CRC-wrong counts or TL-SDU list (protocol
+  discriminator, PDU type, length, in order) differ from the reference
+  walk's;
 - passes_differing: passes of the window whose per-carrier results
   (bursts, CRC counts, cell, TL-SDU count) differ from the check pass's.
 """
@@ -38,9 +57,13 @@ import torch
 
 from portbench.reference import fec, frontend, sync, walk_ref
 
-LIMITS = {"fe_rel_err": 1e-4, "demod_rel_err": 1e-4, "feeds_differing": 0, "slots_differing": 0,
-          "bursts_differing": 0, "cells_differing": 0, "walk_differing": 0,
-          "passes_differing": 0}
+LIMITS = {"fe_rel_err": 1e-4, "demod_rel_err": 1e-4, "decisions_far": 0,
+          "feeds_differing": 0, "slots_differing": 0, "bursts_differing": 0,
+          "cells_differing": 0, "walk_differing": 0, "passes_differing": 0}
+# float32's own rounding in the soft slicer (the mean magnitude, the
+# division, the scale by 31) as a share of the scaled value, with room:
+# it is of the order of 1e-7 (a few ulps)
+SOFT_SLACK = 2.0 ** -16
 EV_TLSDU = 12                # the native walk's TL-SDU event kind
 
 
@@ -123,19 +146,81 @@ def program_slots(collects: list, n_car: int):
     return out, base
 
 
+def slicer(cfg: dict) -> str:
+    """The receiver's slicer, "hard" or "soft" (the configuration's
+    `demod`; the mixer bank slices hard whatever it is, and the check
+    does not follow that case)."""
+    if cfg["demod"] == "soft" and cfg["front_end"] != "pfb":
+        raise ValueError("the check follows a soft receiver on the "
+                         "filterbank only")
+    return cfg["demod"]
+
+
+def decision_ties(ref_ph: tuple, prog_ph: tuple, want: torch.Tensor,
+                  got: torch.Tensor, kind: str) -> tuple:
+    """The program's slicer output `got` against the reference's `want`
+    [C, 2n] (hard bits or soft values, each sliced from its own demod
+    output: ref_ph the reference's (sr, si) [C, n], prog_ph the
+    program's). Returns (far, tie), bool [C, 2n]. With dev the largest
+    distance of a component of the program's phasors from the
+    reference's on that carrier, a hard bit is a tie where its
+    component lies within dev of zero; a soft value one step off is a
+    tie where the reference's scaled value lies within its reach of the
+    half step between the two: 31 dev (1 + sqrt2 |x| / nrm) / (nrm -
+    sqrt2 dev), as far as dev can move x / nrm (the mean magnitude nrm
+    moves by at most sqrt2 dev), plus float32's own rounding
+    (SOFT_SLACK). far: every other decision that differs."""
+    rr, ri = ref_ph
+    pr, pi = (x.to(rr.device, rr.dtype) for x in prog_ph)
+    dev = torch.maximum((pr - rr).abs().amax(dim=1),
+                        (pi - ri).abs().amax(dim=1))[:, None]
+    comp = torch.stack([ri, rr], dim=-1).reshape(rr.shape[0], -1)
+    diff = got.to(want.device, torch.int16) - want.to(torch.int16)
+    if kind == "hard":
+        tie = (diff != 0) & (comp.abs() <= dev)
+    else:
+        nrm = torch.sqrt(rr * rr + ri * ri).mean(dim=-1, keepdim=True) + 1e-9
+        y = torch.clamp(comp / nrm, -4.0, 4.0) * 31.0
+        reach = 31.0 * dev * (1 + math.sqrt(2) * comp.abs() / nrm) \
+            / (nrm - math.sqrt(2) * dev).clamp_min(1e-30) \
+            + SOFT_SLACK * (y.abs() + 1)
+        half = (want.to(y.dtype) + got.to(want.device, y.dtype)) / 2
+        tie = (diff.abs() == 1) & ((y - half).abs() <= reach)
+    return (diff != 0) & ~tie, tie
+
+
+def _feed_of(outputs: list | None, i: int, shape: tuple):
+    """outputs[i] (a tensor, or a tuple of them) where it is there and
+    of `shape`, else None."""
+    if outputs is None or i >= len(outputs):
+        return None
+    out = outputs[i]
+    first = out[0] if isinstance(out, tuple) else out
+    return out if tuple(first.shape) == tuple(shape) else None
+
+
 def reference_run(cfg: dict, cap: dict, samples: torch.Tensor,
                   feeds: list, precision: str, fe_cb=None, dm_cb=None,
-                  demod_precision: str | None = None) -> dict:
+                  demod_precision: str | None = None, dec_cb=None,
+                  program_phasors: list | None = None,
+                  program_decisions: list | None = None) -> dict:
     """The reference receiver over the capture: per feed the front end
     (fe_cb(i, channels) sees each), the demod (dm_cb(i, phasors) sees
     its output before the slicer; in demod_precision, by default the
-    front end's), the kept bits; then the
-    synchroniser over each carrier's whole stream and the decode of its
-    emitted slots. Returns {'burst', 'emit' [B, steps] (the
-    synchroniser's processed-burst and emitted-slot flags), 'slots':
-    {carrier: (burst index, kind, rows)}, 'bursts' [B], 'cells' [B, 3]
-    (colour code, MCC, MNC of the last SYNC block that passed its CRC)}."""
-    bits = []
+    front end's; a timing pick tied to rounding follows
+    program_phasors' of that feed), the slicer (dec_cb(i, decisions)
+    sees its output) and the kept decisions; where program_decisions
+    is given, each feed's are held to the reference's (decision_ties)
+    and taken at the ties. Then the synchroniser over each carrier's
+    whole stream and the decode of its emitted slots (`chain`), with
+    'timing_ties' (the carrier-feeds whose pick followed the program's
+    on a tie), 'timing_tie_gap' (the largest score gap of those), and
+    'decisions', 'decisions_far' and 'decision_ties' (the decisions
+    compared, those that differ untied, inf where a feed's are missing
+    or of another shape, and those taken from the program on a tie)."""
+    kind = slicer(cfg)
+    kept, gaps = [], []
+    dec = {"decisions": 0, "decisions_far": 0, "decision_ties": 0}
     for i, f in enumerate(feeds):
         ch = reference_channels(cfg, cap, samples, f, precision)
         if fe_cb is not None:
@@ -144,16 +229,48 @@ def reference_run(cfg: dict, cap: dict, samples: torch.Tensor,
         if dp != precision:
             ch = tuple(x.to(torch.float64 if dp == "f64" else torch.float32)
                        for x in ch)
-        ph = frontend.demod_phasors(ch[0], ch[1], precision=dp)
+        near = _feed_of(program_phasors, i,
+                        (ch[0].shape[0], ch[0].shape[1] // 2))
+        sr, si, g = frontend.demod_phasors(ch[0], ch[1], precision=dp,
+                                           near=near)
+        ph = (sr, si)
+        gaps.append(g)
+        del sr, si
         del ch
         if dm_cb is not None:
             dm_cb(i, ph)
-        b = frontend.hard_bits(*ph)
+        d = frontend.decisions(*ph, kind)
+        if dec_cb is not None:
+            dec_cb(i, d)
+        if program_decisions is not None:
+            dec["decisions"] += d.numel()
+            prog = _feed_of(program_decisions, i, d.shape)
+            if prog is None or near is None:
+                dec["decisions_far"] = math.inf
+            else:
+                far, tie = decision_ties(ph, near, d, prog, kind)
+                dec["decisions_far"] += int(far.sum())
+                dec["decision_ties"] += int(tie.sum())
+                d = torch.where(tie, prog.to(d.device, d.dtype), d)
         del ph
         if f["keep"]:
-            bits.append(b[:, b.shape[1] - f["keep"]:])
-    stream = torch.cat(bits, dim=1)
-    st = sync.scan_stream(stream)
+            kept.append(d[:, d.shape[1] - f["keep"]:])
+    gaps = torch.cat(gaps)
+    return {**chain(cfg, torch.cat(kept, dim=1)), **dec,
+            "timing_ties": len(gaps),
+            "timing_tie_gap": float(gaps.max()) if len(gaps) else 0.0}
+
+
+def chain(cfg: dict, stream: torch.Tensor) -> dict:
+    """Sync, FEC and cells over each carrier's whole stream of decisions
+    [B, T] (the slicer's). Returns {'burst', 'emit' [B, steps] (the
+    synchroniser's processed-burst and emitted-slot flags), 'slots':
+    {carrier: (burst index, kind, rows)}, 'bursts' [B], 'cells' [B, 3]
+    (colour code, MCC, MNC of the last SYNC block that passed its CRC)}."""
+    soft = None
+    if slicer(cfg) == "soft":
+        soft, stream = stream, (stream < 0).to(torch.int8)
+    st = sync.scan_stream(stream, tol=2 if soft is not None else 0)
     burst = st["burst"].T.cpu().numpy()
     emit = st["emit"].T.cpu().numpy()
     col = st["col"].T.cpu().numpy()
@@ -162,7 +279,7 @@ def reference_run(cfg: dict, cap: dict, samples: torch.Tensor,
     bc = np.cumsum(burst, axis=1)
     car, step = np.nonzero(emit)
     rows = fec.decode_slots(stream, car, slot[car, step].astype(np.int64),
-                            col[car, step].astype(np.int64))
+                            col[car, step].astype(np.int64), soft)
     slots, cells = {}, np.zeros((B, 3), np.int64)
     for c in range(B):
         m = car == c
@@ -216,16 +333,16 @@ def program_tl_sdus(native_events, carrier: int) -> list:
 
 
 def walk_sample(cfg: dict, cap: dict, seed: int) -> np.ndarray:
-    """The carriers whose walk the reference repeats: all of them up to
-    `check_walk_carriers`, else that many drawn from the seed, half of
-    them (or all there are) from the encrypted ones."""
-    n_car = int(cfg["carriers"])
+    """The carriers whose walk the reference repeats, all on air: all of
+    them up to `check_walk_carriers`, else that many drawn from the
+    seed, half of them (or all there are) from the encrypted ones."""
+    on = np.flatnonzero(cap["on_air"].cpu().numpy())
     k = int(cfg["check_walk_carriers"])
-    if k >= n_car:
-        return np.arange(n_car)
+    if k >= len(on):
+        return on
     rng = np.random.default_rng(int(seed) & 0xFFFF_FFFF_FFFF_FFFF)
     enc = np.flatnonzero(cap["encrypted"].cpu().numpy())
-    plain = np.setdiff1d(np.arange(n_car), enc)
+    plain = np.setdiff1d(on, enc)
     ne = min(len(enc), k // 2)
     pick = np.concatenate([rng.choice(enc, ne, replace=False),
                            rng.choice(plain, k - ne, replace=False)])
@@ -237,9 +354,10 @@ def evaluate(cfg: dict, cap: dict, record: dict, summaries: list,
              precision: str = "f64") -> tuple[dict, dict]:
     """Every number compared, from the program's check pass (`record`:
     'fe' [(n_in, base, (re, im))] a front-end call, 'dm' [(sr, si)] a
-    demod call, 'collects' the collected chunk dicts, 'carriers',
-    'native_events') and the window's per-pass summaries. Returns
-    ({name: value}, {what was compared: how many})."""
+    demod call, 'dec' [decisions] a slicer call, 'collects' the
+    collected chunk dicts, 'carriers', 'native_events') and the window's
+    per-pass summaries. Returns ({name: value}, {what was compared: how
+    many})."""
     dev = torch.device(device)
     samples = torch.as_tensor(cap["samples_host"]).to(dev)
     n_samples = len(cap["samples_host"]) // (2 if cfg["format"] == "u8" else 1)
@@ -250,8 +368,9 @@ def evaluate(cfg: dict, cap: dict, record: dict, summaries: list,
         base = f["base"] if cfg["front_end"] == "mixer" else None
         res["feeds_differing"] += (call[0], call[1]) != (f["end"] - f["start"],
                                                          base)
-    dm_calls = record["dm"]
-    res["feeds_differing"] += abs(len(dm_calls) - len(feeds))
+    dm_calls, dec_calls = record["dm"], record["dec"]
+    res["feeds_differing"] += abs(len(dm_calls) - len(feeds)) \
+        + abs(len(dec_calls) - len(feeds))
     worst = {"fe": 0.0, "dm": 0.0}
 
     def held(key, got):
@@ -262,10 +381,12 @@ def evaluate(cfg: dict, cap: dict, record: dict, summaries: list,
                 worst[key] = math.inf
         return cb
 
-    ref = reference_run(cfg, cap, samples, feeds, precision,
-                        held("fe", [c[2] for c in fe_calls]),
-                        held("dm", dm_calls))
+    ref = reference_run(
+        cfg, cap, samples, feeds, precision,
+        held("fe", [c[2] for c in fe_calls]), held("dm", dm_calls),
+        program_phasors=dm_calls, program_decisions=dec_calls)
     res["fe_rel_err"], res["demod_rel_err"] = worst["fe"], worst["dm"]
+    res["decisions_far"] = ref["decisions_far"]
     n_car = int(cfg["carriers"])
     prog, prog_bursts = program_slots(record["collects"], n_car)
     res["slots_differing"] = slots_differing(prog, ref["slots"])
@@ -288,7 +409,13 @@ def evaluate(cfg: dict, cap: dict, record: dict, summaries: list,
                                   for s in summaries)
     compared = {"feeds": len(feeds),
                 "slots": sum(len(v[0]) for v in ref["slots"].values()),
-                "carriers": n_car, "walk_carriers": len(sample),
+                "carriers": n_car,
+                "on_air": int(cap["on_air"].sum()),
+                "decisions": ref["decisions"],
+                "decision_ties": ref["decision_ties"],
+                "timing_ties": ref["timing_ties"],
+                "timing_tie_gap": ref["timing_tie_gap"],
+                "walk_carriers": len(sample),
                 "walk_tl_sdus": n_sdus, "passes": len(summaries),
                 "crc_ok": int(last[:, 1].sum()),
                 "crc_wrong": int(last[:, 2].sum()),

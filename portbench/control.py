@@ -7,8 +7,9 @@ float64 reference (the upper readings). The port computes float32 with
 TF32 off, so the control is the reference in TF32: float32 with every
 operand of a multiply rounded to TF32's 10-bit mantissa
 (reference/frontend.py). It is read twice: over the whole chain (front
-end and demod), and over the demod alone, on the float64 reference's
-channels. The benchmark's runs never run this.
+end, demod and the cell's slicer, its decisions held as the program's
+are), and over the demod alone, on the float64 reference's channels. The benchmark's runs never
+run this.
 
     python3 -m portbench.control --workload <name> --seeds 1,2,3 \\
         [--programs 1] [--control 1]
@@ -56,27 +57,35 @@ def readings(workload: str, seed: int, programs: int = 1,
     samples = cap["samples"]
     n = len(cap["samples_host"]) // (2 if cfg["format"] == "u8" else 1)
     feeds = check.reference_feeds(cfg, n)
-    kept_ch, kept_ph, worst = {}, {}, {"fe": 0.0, "dm": 0.0, "dm_only": 0.0}
+    ctl_ch, ctl_ph, ctl_dec = {}, {}, {}
+    worst = {"fe": 0.0, "dm": 0.0, "dm_only": 0.0}
+    ctl = check.reference_run(cfg, cap, samples, feeds, "tf32",
+                              lambda i, ch: ctl_ch.__setitem__(i, ch),
+                              lambda i, ph: ctl_ph.__setitem__(i, ph),
+                              dec_cb=lambda i, d: ctl_dec.__setitem__(i, d))
 
-    def keep_dm_only(i, ch):
-        kept_ch[i] = ch
-        lo = frontend.demod_phasors(*(x.float() for x in ch),
-                                    precision="tf32")
-        hi = frontend.demod_phasors(*ch, precision="f64")
+    def f64_channels(i, ch):
+        worst["fe"] = max(worst["fe"], check.fe_error(ctl_ch.pop(i), ch))
+        *lo, _ = frontend.demod_phasors(*(x.float() for x in ch),
+                                        precision="tf32")
+        *hi, _ = frontend.demod_phasors(*ch, precision="f64", near=lo)
         worst["dm_only"] = max(worst["dm_only"], check.fe_error(lo, hi))
 
-    ref = check.reference_run(cfg, cap, samples, feeds, "f64", keep_dm_only,
-                              lambda i, ph: kept_ph.__setitem__(i, ph))
+    def f64_phasors(i, ph):
+        worst["dm"] = max(worst["dm"], check.fe_error(ctl_ph[i], ph))
 
-    def held(key, kept):
-        def cb(i, got):
-            worst[key] = max(worst[key], check.fe_error(got, kept[i]))
-        return cb
-
-    ctl = check.reference_run(cfg, cap, samples, feeds, "tf32",
-                              held("fe", kept_ch), held("dm", kept_ph))
+    # the float64 reference with the control in the program's place: its
+    # timing picks and slicer decisions held and followed on ties as the
+    # check holds and follows the program's
+    ref = check.reference_run(
+        cfg, cap, samples, feeds, "f64", f64_channels, f64_phasors,
+        program_phasors=[ctl_ph[i] for i in range(len(feeds))],
+        program_decisions=[ctl_dec[i] for i in range(len(feeds))])
     out["control"] = {"fe_rel_err": worst["fe"], "demod_rel_err": worst["dm"],
                       "demod_rel_err.demod_alone": worst["dm_only"],
+                      "decisions_far": ref["decisions_far"],
+                      "decision_ties": ref["decision_ties"],
+                      "decisions": ref["decisions"],
                       "slots_differing": check.slots_differing(
                           ctl["slots"], ref["slots"])}
     return out

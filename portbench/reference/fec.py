@@ -5,6 +5,13 @@ deinterleave, depuncture (rate 2/3 over the rate-1/4 mother code),
 scrambling code of each slot, taken from the last SYNC block that
 passed its CRC on the same carrier (the BSCH code for SB1 itself).
 
+On a soft pipeline the blocks are decoded from the slots' int8 soft
+values (positive = bit 0): descrambling flips their signs, and the
+depunctured values go into the Viterbi's int32 metric as they are (the
+receiver's f32 metric holds 127 times the same integers, exactly, so
+its decisions and ties are these); the scrambling code still comes
+from the hard decode of SB1 (soft < 0), and the AACH bits are hard.
+
 `decode_slots` returns for each emitted slot the receiver's packed row:
 [block A type-1 (SB1 60 / SCH/F 268 / NDB1 124, zero-padded to 268) |
 block B type-1 (SB2 / - / NDB2, 124) | AACH type-1 (14) | okA | okB].
@@ -129,20 +136,25 @@ def crc16_ok(bits: torch.Tensor) -> torch.Tensor:
     return reg == C.TETRA_CRC_OK
 
 
-def decode_block(kind: str, type5: torch.Tensor, codes: torch.Tensor):
+def decode_block(kind: str, type5: torch.Tensor, codes: torch.Tensor,
+                 soft: bool = False):
     """type-5 bits [R, n345] of one CRC-protected block kind, scrambled
-    with codes [R] -> (type-1 bits [R, n1] int8, crc ok [R] bool)."""
+    with codes [R] -> (type-1 bits [R, n1] int8, crc ok [R] bool); soft:
+    type5 holds soft values (positive = bit 0) instead of bits."""
     n345, n2, n1, a, _ = C.BLOCK_PARAMS[kind]
     R = type5.shape[0]
     if R == 0:
         return (torch.zeros((0, n1), dtype=torch.int8, device=type5.device),
                 torch.zeros(0, dtype=torch.bool, device=type5.device))
-    type4 = type5.to(torch.int8) ^ keystream(codes, n345)
+    ks = keystream(codes, n345)
+    if soft:
+        type4 = type5.to(torch.int32) * (1 - 2 * ks.to(torch.int32))
+    else:
+        type4 = 1 - 2 * (type5.to(torch.int8) ^ ks).to(torch.int32)
     dev = type5.device
     type3 = type4[:, torch.as_tensor(_deinterleave(n345, a), device=dev)]
     mother = torch.zeros((R, 4 * n2), dtype=torch.int32, device=dev)
-    mother[:, torch.as_tensor(_puncture(n345), device=dev)] = \
-        1 - 2 * type3.to(torch.int32)
+    mother[:, torch.as_tensor(_puncture(n345), device=dev)] = type3
     type2 = viterbi(mother, n2)
     return type2[:, :n1], crc16_ok(type2[:, :n1 + 16])
 
@@ -158,10 +170,12 @@ def sb1_code(t1: torch.Tensor) -> torch.Tensor:
 
 
 def decode_slots(stream: torch.Tensor, car: np.ndarray, pos: np.ndarray,
-                 kind: np.ndarray) -> np.ndarray:
+                 kind: np.ndarray, soft: torch.Tensor | None = None
+                 ) -> np.ndarray:
     """Emitted slots, in order within each carrier (car [S], stream
-    offset pos [S], kind [S]: 0 SYNC, 1 SCH/F, 2 NDB) of the streams
-    [B, T] -> their packed rows [S, ROW] uint8."""
+    offset pos [S], kind [S]: 0 SYNC, 1 SCH/F, 2 NDB) of the hard-bit
+    streams [B, T] -> their packed rows [S, ROW] uint8. soft: the soft
+    values [B, T] of a soft pipeline, from which the blocks decode."""
     dev = stream.device
     S = len(car)
     out = np.zeros((S, ROW), np.uint8)
@@ -169,7 +183,9 @@ def decode_slots(stream: torch.Tensor, car: np.ndarray, pos: np.ndarray,
         return out
     idx = (torch.as_tensor(pos, device=dev)[:, None]
            + torch.arange(C.BITS_PER_TS, device=dev)[None])
-    bursts = stream[torch.as_tensor(car, device=dev)[:, None], idx]
+    rows_of = torch.as_tensor(car, device=dev)[:, None]
+    bursts = stream[rows_of, idx]
+    blocks = bursts if soft is None else soft[rows_of, idx]
     # SB1 of the SYNC slots, with the BSCH code, and the code it names
     sync = np.flatnonzero(kind == 0)
     sb1_t5 = bursts[torch.as_tensor(sync, device=dev),
@@ -205,23 +221,30 @@ def decode_slots(stream: torch.Tensor, car: np.ndarray, pos: np.ndarray,
         out[rows_t, col:col + t1.shape[1]] = t1.cpu().numpy()
         out[rows_t, okcol] = ok.cpu().numpy()
 
+    sd = soft is not None
+    r = torch.as_tensor(sync, device=dev)
+    if sd:
+        sb1, sb1_ok = decode_block(
+            "SB1", blocks[r, C.SB_BLK1_OFFSET:C.SB_BLK1_OFFSET
+                          + C.SB_BLK1_BITS],
+            torch.full((len(sync),), C.SCRAMB_INIT, dtype=torch.int64,
+                       device=dev), soft=True)
     put(sync, sb1, sb1_ok, 0, ROW - 2)
     blk1 = (C.NDB_BLK1_OFFSET, C.NDB_BLK1_OFFSET + C.NDB_BLK_BITS)
     blk2 = (C.NDB_BLK2_OFFSET, C.NDB_BLK2_OFFSET + C.NDB_BLK_BITS)
-    r = torch.as_tensor(sync, device=dev)
-    t1, ok = decode_block("SB2", bursts[r, C.SB_BLK2_OFFSET:C.SB_BLK2_OFFSET
-                                        + C.SB_BLK2_BITS], codes[r])
+    t1, ok = decode_block("SB2", blocks[r, C.SB_BLK2_OFFSET:C.SB_BLK2_OFFSET
+                                        + C.SB_BLK2_BITS], codes[r], sd)
     put(sync, t1, ok, PACK_A, ROW - 1)
     schf = np.flatnonzero(kind == 1)
     r = torch.as_tensor(schf, device=dev)
     t1, ok = decode_block("SCH_F", torch.cat(
-        [bursts[r, blk1[0]:blk1[1]], bursts[r, blk2[0]:blk2[1]]], dim=1),
-        codes[r])
+        [blocks[r, blk1[0]:blk1[1]], blocks[r, blk2[0]:blk2[1]]], dim=1),
+        codes[r], sd)
     put(schf, t1, ok, 0, ROW - 2)
     ndb = np.flatnonzero(kind == 2)
     r = torch.as_tensor(ndb, device=dev)
-    t1, ok = decode_block("NDB", bursts[r, blk1[0]:blk1[1]], codes[r])
+    t1, ok = decode_block("NDB", blocks[r, blk1[0]:blk1[1]], codes[r], sd)
     put(ndb, t1, ok, 0, ROW - 2)
-    t1, ok = decode_block("NDB", bursts[r, blk2[0]:blk2[1]], codes[r])
+    t1, ok = decode_block("NDB", blocks[r, blk2[0]:blk2[1]], codes[r], sd)
     put(ndb, t1, ok, PACK_A, ROW - 1)
     return out

@@ -1,17 +1,18 @@
 """The receiver's front end, worked out again: the stream geometry of
 its overlap-save chunking, the polyphase filterbank and the mixer bank
-to the 36 kHz demod rate, and the hard DQPSK demod, in float64.
+to the 36 kHz demod rate, and the DQPSK demod with its hard and soft
+slicers, in float64.
 
 Same functions as the port's plain versions (phy.pfb
 pfb_channelize_rows_plain / resample_rows_plain, phy.channelizer
-channelize_ri, phy.dqpsk demodulate_hard_ri, rx_multi's streaming), with
-the filters designed here from their formulas. `precision="tf32"` runs
-the same reference in TF32, the lower-precision control of the
-comparison: float32 with every operand of a multiply (the inputs, the
-filters, the oscillator, the FFT's input, the resampler's blocks, the
-demod's matched filter and its outputs) rounded to TF32's 10-bit
-mantissa first, as a tensor core would take it, whatever kernel the
-library picks for these shapes.
+channelize_ri, phy.dqpsk demodulate_hard_ri and demodulate_soft_ri,
+rx_multi's streaming), with the filters designed here from their
+formulas. `precision="tf32"` runs the same reference in TF32, the
+lower-precision control of the comparison: float32 with every operand
+of a multiply (the inputs, the filters, the oscillator, the FFT's
+input, the resampler's blocks, the demod's matched filter and its
+outputs) rounded to TF32's 10-bit mantissa first, as a tensor core
+would take it, whatever kernel the library picks for these shapes.
 """
 from __future__ import annotations
 
@@ -25,6 +26,11 @@ import torch.nn.functional as F
 DEMOD_RATE = 36_000.0
 N_PHASES = 32
 CUTOFF = 12_500.0
+# scores (mean |sin 2 theta|, in [0, 1]) of two timing phases closer than
+# this are a tie that float32 may break either way: the receiver's float32
+# scores lie within 2.2e-7 of float64's on the card, and a carrier on air
+# leads its next phase by more than 0.015 at 8 dB SNR (PERF.md section 2)
+TIMING_TIE = 1e-5
 LLOYD_MAX_16 = np.array(
     [-2.733, -2.069, -1.618, -1.256, -0.9424, -0.6568, -0.3881, -0.1284,
      0.1284, 0.3881, 0.6568, 0.9424, 1.256, 1.618, 2.069, 2.733],
@@ -341,13 +347,12 @@ def rrc(sps: int, frac_shift: float, alpha: float = 0.35) -> np.ndarray:
     return taps / np.sum(taps)
 
 
-def demod_phasors(re: torch.Tensor, im: torch.Tensor, sps: int = 2,
-                  os: int = 4, precision: str = "f64") -> tuple:
-    """Baseband [C, T] -> the demod's output before the slicer, (sr, si)
-    [C, T // sps]: the matched filter at os fractional phases, the
-    differential phasor d over one symbol, and per carrier d at the
-    sample phase with the largest mean |sin 2 theta| over the whole
-    feed."""
+def timing_candidates(re: torch.Tensor, im: torch.Tensor, sps: int = 2,
+                      os: int = 4, precision: str = "f64") -> tuple:
+    """Baseband [C, T] -> (drp, dip) [C, T // sps, os sps], the
+    differential phasor d over one symbol after the matched filter at os
+    fractional phases, by symbol and sample phase, and score [C, os sps],
+    each phase's mean |sin 2 theta| over the whole feed."""
     C, T = re.shape
     dt = re.dtype
     bank = np.stack([rrc(sps, k / os) for k in range(os)])
@@ -368,9 +373,40 @@ def demod_phasors(re: torch.Tensor, im: torch.Tensor, sps: int = 2,
     drp, dip = dr[:, :n].reshape(C, n // s2, s2), di[:, :n].reshape(C, n // s2, s2)
     score = (2.0 * torch.abs(drp * dip) / (drp * drp + dip * dip + 1e-12)
              ).mean(dim=1)
+    return drp, dip, score
+
+
+def demod_phasors(re: torch.Tensor, im: torch.Tensor, sps: int = 2,
+                  os: int = 4, precision: str = "f64", near=None) -> tuple:
+    """Baseband [C, T] -> the demod's output before the slicer, (sr, si)
+    [C, T // sps], and the followed ties: per carrier the phasors
+    (timing_candidates) at the sample phase with the largest score.
+    near: another demod's output (sr, si) of the same feed; where
+    several phases' scores lie within TIMING_TIE of the largest, the
+    phase whose phasors lie nearest to `near` is taken, so that a pick
+    that float32 breaks the other way on a rounding tie (on a channel of
+    noise alone, where the phases score alike) is followed. The third
+    value holds, for each carrier whose pick so followed `near` away
+    from the largest score, the largest score less the picked phase's
+    (an empty tensor where none did)."""
+    drp, dip, score = timing_candidates(re, im, sps, os, precision)
     best = torch.argmax(score, dim=-1)
-    idx = best[:, None, None].expand(C, n // s2, 1)
-    return drp.gather(2, idx)[..., 0], dip.gather(2, idx)[..., 0]
+    gaps = score.new_zeros(0)
+    if near is not None:
+        top = score.max(dim=-1, keepdim=True).values
+        tied = score >= top - TIMING_TIE
+        rows = torch.nonzero(tied.sum(dim=-1) > 1).flatten()
+        if len(rows):
+            nr, ni = (x[rows].to(drp.device, drp.dtype)[:, :, None]
+                      for x in near)
+            dist = ((drp[rows] - nr) ** 2 + (dip[rows] - ni) ** 2).sum(dim=1)
+            pick = torch.where(tied[rows], dist, torch.inf).argmin(dim=-1)
+            moved = pick != best[rows]
+            gaps = (top[rows, 0] - score[rows].gather(1, pick[:, None])[:, 0]
+                    )[moved]
+            best[rows] = pick
+    idx = best[:, None, None].expand(*drp.shape[:2], 1)
+    return drp.gather(2, idx)[..., 0], dip.gather(2, idx)[..., 0], gaps
 
 
 def hard_bits(sr: torch.Tensor, si: torch.Tensor) -> torch.Tensor:
@@ -384,4 +420,21 @@ def hard_demod(re: torch.Tensor, im: torch.Tensor, sps: int = 2,
                os: int = 4, precision: str = "f64") -> torch.Tensor:
     """Baseband [C, T] -> ubits [C, 2 (T // sps)] int8: the slicer over
     demod_phasors."""
-    return hard_bits(*demod_phasors(re, im, sps, os, precision))
+    return hard_bits(*demod_phasors(re, im, sps, os, precision)[:2])
+
+
+def soft_values(sr: torch.Tensor, si: torch.Tensor) -> torch.Tensor:
+    """The soft slicer: each component over the carrier's mean phasor
+    magnitude over the feed (+ 1e-9), clamped at +-4, round(x * 31)
+    (ties to even), interleaved (Im, Re) -> int8 [C, 2 n_sym], positive
+    = bit 0."""
+    nrm = torch.sqrt(sr * sr + si * si).mean(dim=-1, keepdim=True) + 1e-9
+    s0 = torch.clamp(si / nrm, -4.0, 4.0)
+    s1 = torch.clamp(sr / nrm, -4.0, 4.0)
+    return torch.round(torch.stack([s0, s1], dim=-1) * 31.0) \
+        .to(torch.int8).reshape(sr.shape[0], -1)
+
+
+def decisions(sr: torch.Tensor, si: torch.Tensor, kind: str) -> torch.Tensor:
+    """The slicer `kind` ("hard" or "soft") over the demod's phasors."""
+    return soft_values(sr, si) if kind == "soft" else hard_bits(sr, si)

@@ -1,8 +1,9 @@
 """The burst synchroniser, worked out again over a whole stream: the
 state machine of osmo-tetra's src/phy/tetra_burst_sync.c stepped 64 bits
 at a time (tetra-rx.c:86), vectorised over carriers (a frozen copy of
-the port's plain version, phy.sync_vec.sync_scan_plain, at tolerance 0,
-with its match map from phy.burst.match_columns).
+the port's plain version, phy.sync_vec.sync_scan_plain, at tolerance 0
+and at the soft pipeline's tolerance 2, with its match map from
+phy.burst.match_columns).
 
 `scan_stream` runs it over each carrier's whole stream in one call from
 the receiver's initial state, and returns per step the processed-burst
@@ -28,9 +29,11 @@ _PAT0 = tuple(int(s[0]) for s in _SEQS)
 _PAT1_EQ_PAT0 = tuple(bool(s[1] == s[0]) for s in _SEQS)
 
 
-def match_columns(bits: torch.Tensor) -> torch.Tensor:
-    """bool [B, L, 3]: the column's sequence starts at that offset
-    exactly; positions closer than its length to the end never match."""
+def match_columns(bits: torch.Tensor, tol: int = 0) -> torch.Tensor:
+    """bool [B, L, 3]: the column's sequence starts at that offset with
+    at most `tol` wrong bits (each lowers the correlation of the +-1
+    bits by 2); positions closer than its length to the end never
+    match."""
     nmax = max(_SEQ_LEN)
     w = np.zeros((3, 1, nmax), np.float32)
     for i, s in enumerate(_SEQS):
@@ -40,25 +43,30 @@ def match_columns(bits: torch.Tensor) -> torch.Tensor:
     corr = F.conv1d(F.pad(x[:, None, :], (0, nmax - 1)),
                     torch.as_tensor(w, device=bits.device))
     pos = torch.arange(L, device=bits.device)
-    return torch.stack([(corr[:, i] >= float(n)) & (pos <= L - n)
+    return torch.stack([(corr[:, i] >= float(n - 2 * tol)) & (pos <= L - n)
                         for i, n in enumerate(_SEQ_LEN)], dim=-1)
 
 
 def sync_scan(bits: torch.Tensor, state0, buf_start0, nbuf0, nfs0,
-              steps: int, feed: int = FEED_BITS) -> dict:
+              steps: int, feed: int = FEED_BITS, tol: int = 0) -> dict:
     """`steps` feed quanta of the state machine over bits [B, L]
-    (window-relative int32 positions). Returns {'burst', 'emit', 'col',
-    'slot'} as [steps, B] tensors."""
+    (window-relative int32 positions). With tol > 0 the match map allows
+    `tol` wrong bits, and a locked slot takes a sequence at its expected
+    offset (SYNC at 214, NORM at 244) before the first-match scan.
+    Returns {'burst', 'emit', 'col', 'slot'} as [steps, B] tensors."""
     dev = bits.device
     B, L = bits.shape
     i32 = torch.int32
     idx = torch.arange(L, dtype=i32, device=dev)
-    match = match_columns(bits)
+    match = match_columns(bits, tol)
     prev = torch.cat([torch.zeros((B, 1), dtype=bits.dtype, device=dev),
                       bits[:, :-1]], dim=1)
     false_col = torch.zeros((B, 1), dtype=torch.bool, device=dev)
     sentinel = torch.full((B, 1), L, dtype=i32, device=dev)
     nms, viz20s = [], []
+    # the tolerant override's lookups, with a False column at L
+    mcols = [torch.cat([match[..., ci], false_col], dim=1)
+             for ci in range(3)] if tol else None
     for ci in range(3):
         v = torch.where(match[..., ci], idx, L)
         nm = torch.cummin(v.flip(1), dim=1).values.flip(1)
@@ -119,7 +127,20 @@ def sync_scan(bits: torch.Tensor, state0, buf_start0, nbuf0, nfs0,
                                                  _BIG * 4))
         has = key < _BIG * 4
         col = torch.where(has, key & 3, -1)
-        rel = (key >> 2) - slot
+        qw = key >> 2
+        if tol:
+            def at(ci, p):
+                return gather(mcols[ci], p) & (p + _SEQ_LEN[ci] <= blim)
+            e0 = at(0, slot + C.SYNC_TRAIN_OFFSET)
+            e1 = at(1, slot + C.NORM_TRAIN_OFFSET)
+            e2 = at(2, slot + C.NORM_TRAIN_OFFSET)
+            eh = e0 | e1 | e2
+            col = torch.where(eh, torch.where(e0, 0, torch.where(e1, 1, 2))
+                              .to(i32), col)
+            qw = torch.where(eh, torch.where(e0, slot + C.SYNC_TRAIN_OFFSET,
+                                             slot + C.NORM_TRAIN_OFFSET), qw)
+            has = has | eh
+        rel = qw - slot
         is_sync = lk & (col == 0)
         sync_ok = is_sync & (rel == C.SYNC_TRAIN_OFFSET)
         is_norm = lk & ((col == 1) | (col == 2))
@@ -139,15 +160,16 @@ def sync_scan(bits: torch.Tensor, state0, buf_start0, nbuf0, nfs0,
             for k, v in outs.items()}
 
 
-def scan_stream(stream: torch.Tensor) -> dict:
+def scan_stream(stream: torch.Tensor, tol: int = 0) -> dict:
     """Each carrier's whole stream of hard bits [B, T] (int8) from the
     receiver's initial state (unlocked, an empty buffer RING_PAD bits
-    into a zero history): {'burst', 'emit', 'col', 'slot'} [steps, B]
-    with 'slot' the offset in the stream, steps = T // 64."""
+    into a zero history), at tolerance `tol`: {'burst', 'emit', 'col',
+    'slot'} [steps, B] with 'slot' the offset in the stream, steps =
+    T // 64."""
     B, T = stream.shape
     win = torch.cat([torch.zeros((B, RING_PAD), dtype=torch.int8,
                                  device=stream.device),
                      stream.to(torch.int8)], dim=1)
-    out = sync_scan(win, 0, RING_PAD, 0, RING_PAD, T // FEED_BITS)
+    out = sync_scan(win, 0, RING_PAD, 0, RING_PAD, T // FEED_BITS, tol=tol)
     out["slot"] = out["slot"] - RING_PAD
     return out

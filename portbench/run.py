@@ -70,12 +70,12 @@ def _copied(x):
 def recorded_pass(cell: "Cell") -> dict:
     """One pass of `cell` (Cell.one_pass) with copies of what its timed
     path produced: each front-end call's (input samples, base, channels
-    at the demod rate), each demod call's phasors before the slicer, and
-    each collected chunk's dict. Returns the record check.evaluate reads
-    and the pass's per-carrier summary."""
+    at the demod rate), each demod call's phasors before the slicer, the
+    slicer's hard bits or soft values, and each collected chunk's dict.
+    Returns the record check.evaluate reads."""
     from portbench.check import pass_summary
     from portbench.spans import Patches
-    fe, dm, collects = [], [], []
+    fe, dm, dec, collects = [], [], [], []
 
     def pfb(fn):
         def w(re, im, *a, **k):
@@ -92,12 +92,14 @@ def recorded_pass(cell: "Cell") -> dict:
             return out
         return w
 
-    def phasors(fn):
-        def w(*a, **k):
-            out = fn(*a, **k)
-            dm.append(_copied(out))
-            return out
-        return w
+    def kept(into):
+        def make(fn):
+            def w(*a, **k):
+                out = fn(*a, **k)
+                into.append(_copied(out))
+                return out
+            return w
+        return make
 
     def collect(fn):
         def w(self_, h):
@@ -110,13 +112,15 @@ def recorded_pass(cell: "Cell") -> dict:
     try:
         p.wrap(("tetra_tpu_torch.phy.pfb", "pfb_to_demod_rate_ri"), pfb)
         p.wrap(("tetra_tpu_torch.phy.channelizer", "channelize_ri"), mixer)
-        p.wrap(("tetra_tpu_torch.phy.dqpsk", "_stream_phasors"), phasors)
+        p.wrap(("tetra_tpu_torch.phy.dqpsk", "_stream_phasors"), kept(dm))
+        for slicer in ("demodulate_hard_ri", "demodulate_soft_ri"):
+            p.wrap(("tetra_tpu_torch.phy.dqpsk", slicer), kept(dec))
         p.wrap(("tetra_tpu_torch.fastpath", "FastChunkPipeline.collect"),
                collect)
         mrx = cell.one_pass()["mrx"]
     finally:
         p.restore()
-    return {"fe": fe, "dm": dm, "collects": collects,
+    return {"fe": fe, "dm": dm, "dec": dec, "collects": collects,
             "carriers": mrx.carriers, "native_events": mrx.native_events}
 
 
