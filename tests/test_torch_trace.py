@@ -2,7 +2,10 @@
 pass on the CPU: off, it records and costs nothing; on, every chunk has
 one span of each of its stages under one id, self times add up, the
 collector and the overflow re-run are counted, and every span is a
-"tt:" range under torch.profiler, nested as the program nested it."""
+"tt:" range under torch.profiler, nested as the program nested it. The
+soft receiver adds the span "chunk.fec.k4" and the counter
+"fec.soft_rows"; "slots.crc_wrong" counts the blocks the walk found
+failing their CRC, as the JAX package's receiver counts them."""
 import gc
 from collections import Counter
 
@@ -39,11 +42,23 @@ def traced():
         trace.reset()
 
 
-def one_pass(packed, calls: int = 4) -> MultiCarrierReceiver:
+@pytest.fixture(scope="module")
+def noisy_capture():
+    """The 8-carrier slice at 8 dB per-channel SNR: the soft receiver's
+    air, where some blocks fail their CRC."""
+    if not native_exec.available():
+        pytest.skip("native library unavailable")
+    bits, _ = prod_fixture.mixed_bits(8, 0.25)
+    return prod_fixture.wideband_capture(bits[:, :16_000], snr_db=8.0)
+
+
+def one_pass(packed, calls: int = 4,
+             demod: str = "hard") -> MultiCarrierReceiver:
     """The 8-carrier slice through a fresh native-plane receiver in
     `calls` process_iq4c calls, final on the last."""
     rx = MultiCarrierReceiver([], fs=2e5, pfb_channels=np.arange(8),
-                              n_chan=8, control_plane="native", device=CPU)
+                              n_chan=8, control_plane="native",
+                              demod=demod, device=CPU)
     cuts = np.linspace(0, len(packed), calls + 1).astype(int)
     for k in range(calls):
         rx.process_iq4c(packed[cuts[k]:cuts[k + 1]], final=k == calls - 1)
@@ -171,3 +186,84 @@ def test_spans_are_profiler_ranges(capture, traced):
             p = p.cpu_parent
         parent = p.name[3:] if p is not None else None
         assert parent in sp[e.name[3:]]["parents"], (e.name, parent)
+
+
+def test_soft_rows_are_the_rows_handed_to_k4(noisy_capture, traced,
+                                             monkeypatch):
+    """fec.soft_rows counts the rows that reach K4 (its plain version on
+    the CPU), and only the soft receiver counts it."""
+    from tetra_tpu_torch.ops import viterbi_segmented
+    rows = []
+    plain = viterbi_segmented.decode_segmented
+    monkeypatch.setattr(viterbi_segmented, "decode_segmented",
+                        lambda soft, *a: (rows.append(soft.shape[0]),
+                                          plain(soft, *a))[1])
+    one_pass(noisy_capture, demod="soft")
+    assert len(rows) >= 3
+    assert trace.counters()["fec.soft_rows"] == sum(rows)
+    trace.reset()
+    n = len(rows)
+    one_pass(noisy_capture)
+    assert "fec.soft_rows" not in trace.counters() and len(rows) == n
+
+
+@pytest.mark.parametrize("demod", ["hard", "soft"])
+def test_crc_wrong_reads_0_on_a_clean_capture(capture, traced, demod):
+    """The clean mix's traffic slots fail the SCH/F CRC they do not
+    carry; the walk takes them as traffic, and slots.crc_wrong reads 0."""
+    rx = one_pass(capture, demod=demod)
+    kinds = np.concatenate([e["kind"] for e in rx.native_events])
+    assert (kinds == native_exec.EV.TRAFFIC).sum() > 0
+    assert trace.counters()["slots.crc_wrong"] == 0
+    assert sum(c.stats.crc_ok for c in rx.carriers) > 0
+
+
+@pytest.mark.parametrize("demod", ["hard", "soft"])
+def test_crc_wrong_counts_the_blocks_that_failed(noisy_capture, traced,
+                                                 demod):
+    """On the 8 dB slice slots.crc_wrong equals the CRC failures that the
+    JAX package's receiver counts on the same calls."""
+    from tetra_tpu.rx_multi import MultiCarrierReceiver as JaxReceiver
+    ref = JaxReceiver([], fs=2e5, pfb_channels=np.arange(8), n_chan=8,
+                      control_plane="native", demod=demod)
+    cuts = np.linspace(0, len(noisy_capture), 5).astype(int)
+    for k in range(4):
+        ref.process_iq4c(noisy_capture[cuts[k]:cuts[k + 1]], final=k == 3)
+    want = sum(c.stats.crc_wrong for c in ref.carriers)
+    assert want > 0
+    rx = one_pass(noisy_capture, demod=demod)
+    assert trace.counters()["slots.crc_wrong"] == want
+    assert sum(c.stats.crc_wrong for c in rx.carriers) == want
+
+
+def test_k4_span_nests_under_the_fec_span(noisy_capture, traced):
+    """chunk.fec.k4 is a child of chunk.fec, once in each chunk's
+    record, inside that chunk's chunk.fec."""
+    rx = one_pass(noisy_capture, demod="soft")
+    sp = trace.spans()
+    assert set(sp["chunk.fec.k4"]["parents"]) - {"gc"} == {"chunk.fec"}
+    recs = trace.chunk_records()
+    assert len(recs) == len(rx.native_events) >= 3
+    for c, rec in recs.items():
+        at = {n: (s, e) for n, s, e in rec}
+        assert Counter(n for n, _, _ in rec)["chunk.fec.k4"] == 1, c
+        assert at["chunk.fec"][0] <= at["chunk.fec.k4"][0] \
+            <= at["chunk.fec.k4"][1] <= at["chunk.fec"][1]
+
+
+def test_soft_counters_off_move_nothing(noisy_capture):
+    """Off, the soft receiver counts nothing, and it decodes what it
+    decodes with tracing on."""
+    trace.set_level(0)
+    trace.reset()
+    off = results(one_pass(noisy_capture, demod="soft"))
+    assert trace.counters() == {} and trace.spans() == {}
+    trace.set_level(1)
+    try:
+        on = results(one_pass(noisy_capture, demod="soft"))
+        assert trace.counters()["fec.soft_rows"] > 0
+    finally:
+        trace.set_level(0)
+        trace.reset()
+    assert on == off
+    assert sum(s[3] for s in off[0]) > 0    # some blocks failed their CRC

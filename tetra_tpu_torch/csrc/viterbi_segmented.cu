@@ -56,7 +56,7 @@
 //   stores its [rows, n_sym] bits in 4-byte words.
 //
 // K6 is the same body with no boundaries (nb = 0, no restart mask), at
-// kRowsK6 = 8 rows per block: its voice-path launches hold ~300-2,500
+// K6::kRows = 8 rows per block: its voice-path launches hold ~300-2,500
 // rows each (one chunk's full frames or NDB halves), where 16-row blocks
 // leave most SMs one or two blocks and the step chain's latency exposed;
 // 8-row blocks spread the same rows over twice the blocks. Its bound
@@ -73,8 +73,15 @@
 namespace {
 
 using vg::kMaxSym;
-constexpr int kRowsK4 = vg::kRows;  // 16 rows, 256 threads
-constexpr int kRowsK6 = 8;          // 8 rows, 128 threads
+// The two decodes, as tag types: each is a template argument of the
+// kernel, so a profile names K4's launches and K6's apart whatever their
+// rows per block.
+struct K4 {
+  static constexpr int kRows = vg::kRows;  // 16 rows, 256 threads
+};
+struct K6 {
+  static constexpr int kRows = 8;  // 8 rows, 128 threads
+};
 constexpr int kChunk = 16;          // steps per staged chunk
 constexpr float kNeg = -1e6f;
 
@@ -85,15 +92,16 @@ __host__ __device__ inline int smem_bytes(int R, int N, int n_sym) {
          R * vg::bits_stride(n_sym);
 }
 
-// R rows per block of R * 16 threads; nb restart boundaries (0 for K6,
-// whose rmask is then never read).
-template <int N, int Q, int R>
-__global__ void __launch_bounds__(R * vg::kGroup)
+// K::kRows = R rows per block of R * 16 threads; nb restart boundaries
+// (0 for K6, whose rmask is then never read).
+template <int N, int Q, class K>
+__global__ void __launch_bounds__(K::kRows * vg::kGroup)
 viterbi_segmented_kernel(const float* __restrict__ soft, int ld, bool vec,
                          const int32_t* __restrict__ pat,
                          const int8_t* __restrict__ rmask, int nb,
                          int b0, int b1, int b2,
                          int8_t* __restrict__ bits, int B, int n_sym) {
+  constexpr int R = K::kRows;
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int bst_s[R][4];  // per row: best state at b0..b2, end
   const int tid = threadIdx.x;
@@ -243,30 +251,31 @@ viterbi_segmented_kernel(const float* __restrict__ soft, int ld, bool vec,
   vg::store_rows(bits + (size_t)row0 * n_sym, bits_s, rows, n_sym);
 }
 
-template <int Q, int R>
+template <int Q, class K>
 const void* kernel_q(int n_out) {
   switch (n_out) {
-    case 1: return (const void*)viterbi_segmented_kernel<1, Q, R>;
-    case 2: return (const void*)viterbi_segmented_kernel<2, Q, R>;
-    case 3: return (const void*)viterbi_segmented_kernel<3, Q, R>;
-    case 4: return (const void*)viterbi_segmented_kernel<4, Q, R>;
+    case 1: return (const void*)viterbi_segmented_kernel<1, Q, K>;
+    case 2: return (const void*)viterbi_segmented_kernel<2, Q, K>;
+    case 3: return (const void*)viterbi_segmented_kernel<3, Q, K>;
+    case 4: return (const void*)viterbi_segmented_kernel<4, Q, K>;
     default: return nullptr;
   }
 }
 
-template <int R>
+template <class K>
 const void* kernel_for(int n_out, bool quads) {
-  return quads ? kernel_q<4, R>(n_out) : kernel_q<1, R>(n_out);
+  return quads ? kernel_q<4, K>(n_out) : kernel_q<1, K>(n_out);
 }
 
-// Checks the arguments, opts into the shared memory, launches R rows per
-// block; returns the CUDA error code.
-template <int R>
+// Checks the arguments, opts into the shared memory, launches K::kRows
+// rows per block; returns the CUDA error code.
+template <class K>
 int launch(const void* soft, int ld, const void* pat, int n_out,
            const void* rmask, int nb, int b0, int b1, int b2, void* bits,
            int B, int n_sym, void* stream) {
   const bool quads = vg::quads_ok(nb, b0, b1, b2, n_sym);
-  const void* kernel = kernel_for<R>(n_out, quads);
+  constexpr int R = K::kRows;
+  const void* kernel = kernel_for<K>(n_out, quads);
   if (!kernel || n_sym <= 0 || n_sym > kMaxSym || ld < n_sym * n_out ||
       !vg::boundaries_ok(nb, b0, b1, b2, n_sym))
     return (int)cudaErrorInvalidValue;
@@ -286,9 +295,10 @@ int launch(const void* soft, int ld, const void* pat, int n_out,
                                (cudaStream_t)stream);
 }
 
-template <int R>
+template <class K>
 int occupancy(int n_out, int n_sym, int* out) {
-  const void* kernel = kernel_for<R>(n_out, (n_sym & 3) == 0);
+  constexpr int R = K::kRows;
+  const void* kernel = kernel_for<K>(n_out, (n_sym & 3) == 0);
   if (!kernel || n_sym <= 0 || n_sym > kMaxSym)
     return (int)cudaErrorInvalidValue;
   return vg::occupancy(kernel, smem_bytes(R, n_out, n_sym), out,
@@ -304,8 +314,8 @@ extern "C" int tt_viterbi_segmented(const void* soft, int ld, const void* pat,
                                     int n_out, const void* rmask, int nb,
                                     int b0, int b1, int b2, void* bits,
                                     int B, int n_sym, void* stream) {
-  return launch<kRowsK4>(soft, ld, pat, n_out, rmask, nb, b0, b1, b2, bits,
-                         B, n_sym, stream);
+  return launch<K4>(soft, ld, pat, n_out, rmask, nb, b0, b1, b2, bits, B,
+                    n_sym, stream);
 }
 
 // out[0..3]: resident blocks per SM, registers per thread, shared bytes
@@ -313,20 +323,20 @@ extern "C" int tt_viterbi_segmented(const void* soft, int ld, const void* pat,
 // restarts at multiples of 4.
 extern "C" int tt_viterbi_segmented_occupancy(int n_out, int n_sym,
                                               int* out) {
-  return occupancy<kRowsK4>(n_out, n_sym, out);
+  return occupancy<K4>(n_out, n_sym, out);
 }
 
 // K6: the unsegmented decode; soft is row-major [B, ld] f32.
 extern "C" int tt_viterbi_decode(const void* soft, int ld, const void* pat,
                                  int n_out, void* bits, int B, int n_sym,
                                  void* stream) {
-  return launch<kRowsK6>(soft, ld, pat, n_out, nullptr, 0, -1, -1, -1, bits,
-                         B, n_sym, stream);
+  return launch<K6>(soft, ld, pat, n_out, nullptr, 0, -1, -1, -1, bits, B,
+                    n_sym, stream);
 }
 
 // K6's launch shape at (n_out, n_sym), as tt_viterbi_segmented_occupancy.
 extern "C" int tt_viterbi_decode_occupancy(int n_out, int n_sym, int* out) {
-  return occupancy<kRowsK6>(n_out, n_sym, out);
+  return occupancy<K6>(n_out, n_sym, out);
 }
 
 // An empty kernel on `stream`: the launch floor recorded beside K6, whose

@@ -20,6 +20,8 @@ mother order times 127 (an index gather here, where tetra_tpu multiplies
 by its one-hot spread matrix outside any kernel: every row holds one
 127, so the numbers are the same), kernel K4 (ops.viterbi_segmented)
 runs the f32 Viterbi and ops.crc checks the five CRC16 segments.
+With tracing on (utils.trace), the K4 call is the span "chunk.fec.k4"
+and the counter "fec.soft_rows" adds the rows handed to it.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from tetra_tpu_torch.ops import interleave, rcpc, scramble
 from tetra_tpu_torch.ops.crc import crc16_check
 from tetra_tpu_torch.ops.viterbi_assembled import AssembledCode
 from tetra_tpu_torch.ops.viterbi_segmented import decode_segmented_k4
+from tetra_tpu_torch.utils import trace
 
 __all__ = ["FusedTables", "assemble_parts", "assemble_soft",
            "decode_slots_fused",
@@ -198,7 +201,9 @@ def decode_slots_fused(slots, inits, kinds, soft_input: bool = False) -> dict:
         soft_f = slots.reshape(N, C.BITS_PER_TS).to(torch.float32)
         slots_f = (soft_f < 0).to(torch.int8)
         soft, rm, ks_cell = assemble_soft(soft_f, inits_f, kinds_f, tables)
-        bits = decode_segmented_k4(soft, rm, N_SYM, BOUNDARIES)
+        trace.count("fec.soft_rows", soft.shape[0])
+        with trace.span("chunk.fec.k4"):
+            bits = decode_segmented_k4(soft, rm, N_SYM, BOUNDARIES)
         oks = [crc16_check(bits[:, off:off + ln]) for off, ln in CRC_SEGS]
     else:
         slots_f = slots.reshape(N, C.BITS_PER_TS).to(torch.int8)

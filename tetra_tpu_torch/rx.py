@@ -381,6 +381,8 @@ class TetraReceiver:
                      f"{_ubits_str(res.type1)}")
         self.stats.crc_ok += ok
         self.stats.crc_wrong += not ok
+        if not ok:
+            trace.count("slots.crc_wrong")
         return ok
 
     def _rx_sb1(self, res):

@@ -39,7 +39,9 @@ With tracing on (utils.trace), the receiver's construction is a span
 "rx.build", each public process_* call a span "call", and on the native
 plane each chunk's "chunk.submit" (with the front end, sync and FEC
 enqueues inside it), "chunk.fetch_wait", "chunk.parse", "chunk.walk" and
-"chunk.egress" carry the chunk's id (fastpath.next_seq).
+"chunk.egress" carry the chunk's id (fastpath.next_seq). On both planes
+the counter "slots.crc_wrong" adds each block the walk found failing its
+CRC, as RxStats.crc_wrong counts it (a traffic slot carries no CRC).
 
 `carriers` holds one TetraReceiver per carrier on both planes (the
 native plane writes its stats, TDMA time and cell identity there).
@@ -666,6 +668,8 @@ class MultiCarrierReceiver:
         crc = kinds == EV.CRC
         ok_c = np.bincount(cars[crc & (evd["b"] == 1)], minlength=B)
         wr_c = np.bincount(cars[crc & (evd["b"] == 0)], minlength=B)
+        if trace.enabled():
+            trace.count("slots.crc_wrong", int(wr_c.sum()))
         states = self.native_cp.get_states()
         scr = d["scramb"]
         for i, c in enumerate(np.asarray(d["side_carrier"], np.int64)):
