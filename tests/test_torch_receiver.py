@@ -64,6 +64,59 @@ def test_rtltcp_protocol_and_samples():
     assert cmds[sdr.CMD_GAIN_MODE] == 1 and cmds[sdr.CMD_GAIN] == 380
 
 
+def _u8_formula(raw_u8: np.ndarray) -> np.ndarray:
+    """The conversion _to_complex replaced: float32, then the complex sum
+    of the strided halves through a complex temporary."""
+    f = (raw_u8.astype(np.float32) - 127.5) * (1.0 / 127.5)
+    return (f[0::2] + 1j * f[1::2]).astype(np.complex64)
+
+
+def _u8_input(case: str) -> np.ndarray:
+    if case == "all_pairs":          # every (I, Q) byte pair once
+        k = np.arange(1 << 16)
+        return np.stack([k & 255, k >> 8], 1).astype(np.uint8).ravel()
+    if case == "sliced":             # a 0.5 s call cut at an even offset
+        host = np.random.default_rng(2_147_483_653).integers(
+            0, 256, 2 * 900_037, dtype=np.uint8)
+        return host[2 * 37:]
+    if case == "read_only":          # as RtlTcpSource.read passes it
+        raw = np.frombuffer(np.random.default_rng(7).integers(
+            0, 256, 4096, dtype=np.uint8).tobytes(), dtype=np.uint8)
+        assert not raw.flags.writeable
+        return raw
+    return np.zeros(0, np.uint8)
+
+
+@pytest.mark.parametrize("case", ["all_pairs", "sliced", "read_only",
+                                  "empty"])
+def test_u8_conversion_is_bit_exact(case):
+    """_to_complex equals, bit for bit, the formula it replaced and the
+    JAX package's conversion; its result is a fresh, C-contiguous,
+    writable complex64 array that leaves the input as it was."""
+    raw = _u8_input(case)
+    before = raw.copy()
+    got = sdr.RtlTcpSource._to_complex(raw)
+    assert got.dtype == np.complex64 and got.shape == (len(raw) // 2,)
+    assert got.flags.c_contiguous and got.flags.writeable
+    for ref in (_u8_formula(raw), JaxRtlTcpSource._to_complex(raw)):
+        assert ref.dtype == np.complex64
+        assert np.array_equal(got.view(np.uint32), ref.view(np.uint32))
+    assert np.array_equal(raw, before)
+    again = sdr.RtlTcpSource._to_complex(raw)
+    assert np.array_equal(again.view(np.uint32), got.view(np.uint32))
+    assert not np.shares_memory(got, again)
+    assert not np.shares_memory(got, raw)
+
+
+def test_u8_conversion_odd_length_raises():
+    """Half a sample is an error, as in the JAX package."""
+    raw = np.arange(7, dtype=np.uint8)
+    with pytest.raises(ValueError):
+        JaxRtlTcpSource._to_complex(raw)
+    with pytest.raises(ValueError):
+        sdr.RtlTcpSource._to_complex(raw)
+
+
 def _lines(out: list):
     return prod_fixture.line_logger(out)
 

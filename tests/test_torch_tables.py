@@ -234,23 +234,58 @@ _COPIES = ["constants", "tdma", "umac/native_exec", "crypto/crypto",
            "testpdu"]
 
 
-def _code(path: pathlib.Path) -> str:
+# Names whose definitions a copy changed on purpose, in either module,
+# each held by a test of its own: the port's u8 conversion is one float32
+# pass under a span (test_torch_receiver.py::
+# test_u8_conversion_is_bit_exact).
+_DEPARTURES = {"io/sdr": {"trace", "_to_complex"}}
+
+
+def _code(path: pathlib.Path, drop=frozenset()) -> str:
     """Module source after its docstring, with the package name
-    normalised."""
+    normalised; without the module- or class-level imports, assignments
+    and functions that define a name in `drop`, each cut with the blank
+    lines after it when a blank line comes before it."""
     import ast
     src = path.read_text()
-    body = ast.parse(src).body
-    start = body[1].lineno if ast.get_docstring(ast.parse(src)) else 1
-    code = "\n".join(src.splitlines()[start - 1:])
+    tree = ast.parse(src)
+    lines = src.splitlines()
+    start = tree.body[1].lineno if ast.get_docstring(tree) else 1
+    nodes = list(tree.body) + [n for c in tree.body
+                               if isinstance(c, ast.ClassDef)
+                               for n in c.body]
+    cut = set()
+    for node in nodes:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = {a.asname or a.name for a in node.names}
+        elif isinstance(node, ast.Assign):
+            names = {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.FunctionDef):
+            names = {node.name}
+        else:
+            continue
+        if not names & drop:
+            continue
+        first = min([node.lineno] +
+                    [d.lineno for d in getattr(node, "decorator_list", [])])
+        last = node.end_lineno
+        if first > 1 and not lines[first - 2].strip():
+            while last < len(lines) and not lines[last].strip():
+                last += 1
+        cut.update(range(first, last + 1))
+    code = "\n".join(ln for k, ln in enumerate(lines, 1)
+                     if k >= start and k not in cut)
     return code.replace("tetra_tpu_torch", "tetra_tpu")
 
 
 @pytest.mark.parametrize("mod", _COPIES)
 def test_copied_module_code(mod):
-    """Each copy's code equals the original's (docstring aside)."""
+    """Each copy's code equals the original's (docstring aside), but for
+    the definitions it departs in on purpose (_DEPARTURES)."""
     root = pathlib.Path(__file__).resolve().parent.parent
-    assert _code(root / "tetra_tpu_torch" / f"{mod}.py") == \
-        _code(root / "tetra_tpu" / f"{mod}.py")
+    drop = frozenset(_DEPARTURES.get(mod, ()))
+    assert _code(root / "tetra_tpu_torch" / f"{mod}.py", drop) == \
+        _code(root / "tetra_tpu" / f"{mod}.py", drop)
 
 
 def _const_names():

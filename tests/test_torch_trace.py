@@ -5,7 +5,8 @@ collector and the overflow re-run are counted, and every span is a
 "tt:" range under torch.profiler, nested as the program nested it. The
 soft receiver adds the span "chunk.fec.k4" and the counter
 "fec.soft_rows"; "slots.crc_wrong" counts the blocks the walk found
-failing their CRC, as the JAX package's receiver counts them."""
+failing their CRC, as the JAX package's receiver counts them. The
+rtl-sdr ingest's u8 conversion is a span "io.u8" of its own."""
 import gc
 from collections import Counter
 
@@ -14,6 +15,7 @@ import pytest
 
 from tests._torch_util import CPU
 from tetra_tpu_torch import fastpath, prod_fixture
+from tetra_tpu_torch.io.sdr import RtlTcpSource
 from tetra_tpu_torch.rx_multi import MultiCarrierReceiver
 from tetra_tpu_torch.umac import native_exec
 from tetra_tpu_torch.utils import trace
@@ -267,3 +269,20 @@ def test_soft_counters_off_move_nothing(noisy_capture):
         trace.reset()
     assert on == off
     assert sum(s[3] for s in off[0]) > 0    # some blocks failed their CRC
+
+
+def test_u8_conversion_is_a_span_without_a_parent(traced):
+    """On, each _to_complex call records one io.u8 span with no parent;
+    off, it records nothing and returns the same samples."""
+    raw = np.random.default_rng(5).integers(0, 256, 2 * 4096,
+                                            dtype=np.uint8)
+    on = [RtlTcpSource._to_complex(raw) for _ in range(3)]
+    sp = trace.spans()["io.u8"]
+    assert sp["count"] == 3 and set(sp["parents"]) == {None}
+    trace.set_level(0)
+    trace.reset()
+    off = RtlTcpSource._to_complex(raw)
+    assert trace.spans() == {} and trace.counters() == {}
+    assert trace.chunk_records() == {}
+    for a in on:
+        assert np.array_equal(a.view(np.uint32), off.view(np.uint32))

@@ -28,6 +28,8 @@ import struct
 
 import numpy as np
 
+from tetra_tpu_torch.utils import trace
+
 __all__ = ["RtlTcpSource", "RTL_TCP_PORT", "TUNER_NAMES"]
 
 RTL_TCP_PORT = 1234
@@ -135,9 +137,15 @@ class RtlTcpSource:
         return np.ascontiguousarray(f[0::2]), np.ascontiguousarray(f[1::2])
 
     @staticmethod
+    @trace.spanned("io.u8")
     def _to_complex(raw_u8: np.ndarray) -> np.ndarray:
-        f = (raw_u8.astype(np.float32) - 127.5) * (1.0 / 127.5)
-        return (f[0::2] + 1j * f[1::2]).astype(np.complex64)
+        """Interleaved u8 I/Q -> a fresh complex64 array of len // 2
+        samples: each byte b becomes (b - 127.5) * (1 / 127.5) in float32,
+        in place in one float32 array, which is then seen as complex64
+        (even bytes I, odd bytes Q). An odd length raises ValueError."""
+        f = np.subtract(raw_u8, np.float32(127.5), dtype=np.float32)
+        f *= np.float32(1.0 / 127.5)
+        return f.view(np.complex64)
 
     def stream(self, chunk: int = 1 << 20, total_samples: int | None = None):
         """Generator of complex64 chunks (`chunk` samples each) until
