@@ -162,6 +162,7 @@ def test_tun_writes(monkeypatch):
     JAX native plane writes them (a cut inside the fragment chain)."""
     from tetra_tpu.rx import TetraReceiver
     from tetra_tpu_torch.io.tun import TunDevice
+    from tetra_tpu_torch.rx import CarrierState
     batch, ips = _defrag_capture()
     cut = (batch.shape[1] // 2) & ~63
     want = {c: [] for c in range(3)}
@@ -178,6 +179,8 @@ def test_tun_writes(monkeypatch):
     for rx in (ref, got):
         rx.process_bits(batch[:, :cut], final=False)
         rx.process_bits(batch[:, cut:], final=True)
+    # the native plane keeps each carrier's tun0 writer in its CarrierState
+    assert all(type(c) is CarrierState for c in got.carriers)
     per = {c: [p for dev, p in written if dev is got.carriers[c]._tun]
            for c in range(3)}
     assert per == want

@@ -73,7 +73,9 @@ def _run(cls, method, data, ks, dumpdir=None, **kw):
                  n_chan=N_CAR, keystore_path=ks, tl_sdu_sink=sink,
                  log=[prod_fixture.line_logger(lg) for lg in logs],
                  **egress, **kw)
-        for g in [rx.gsmtap] + [c.gsmtap for c in rx.carriers]:
+        # the native plane's carriers hold no sink of their own
+        for g in [rx.gsmtap] + [getattr(c, "gsmtap", None)
+                                for c in rx.carriers]:
             if g is not None:
                 g.addr = udp.addr
         cut = (data.shape[-1] // 2) & ~127

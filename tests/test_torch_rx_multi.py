@@ -41,9 +41,20 @@ def _same_receivers(ref, got, n_car):
         assert np.array_equal(a, b), key
 
 
-def test_prod_wideband_matches_jax(tmp_path):
+def _carrier_state(rx):
+    return [(c.stats.bursts, c.stats.slots, c.stats.crc_ok,
+             c.stats.crc_wrong, c.time.tn, c.time.fn, c.time.mn,
+             c.colour_code, c.mcc, c.mnc, c.scramb_init)
+            for c in rx.carriers]
+
+
+def test_prod_wideband_matches_jax(tmp_path, monkeypatch):
     """TestProdConfig: same per-carrier stats, TDMA state, cell identity
-    and concatenated native event arrays as the JAX receiver."""
+    and concatenated native event arrays as the JAX receiver, with the
+    capture cut in half and in uneven calls (one that completes no BLOCK
+    of the overlap-save stream, a final short one); the uneven cuts
+    leave every carrier as one whole-capture call does."""
+    from tetra_tpu_torch import rx_multi
     sys.path.insert(0, str(ROOT / "tools"))
     import bench_mc_e2e as B
     from tetra_tpu.phy import dqpsk, channelizer
@@ -56,19 +67,41 @@ def test_prod_wideband_matches_jax(tmp_path):
     base = dqpsk.modulate(bits, sps=2)
     wide = channelizer.synthesize_wideband_fft(base, np.arange(8), 8)
     packed = stream_mod.quantize_iq4c(wide.real, wide.imag)
-    half = len(packed) // 2
+    S, BLOCK = len(packed), 25 * 8
+    mid = (S // 2 // BLOCK) * BLOCK
     kw = dict(fs=2e5, pfb_channels=np.arange(8, dtype=np.int32), n_chan=8,
               control_plane="native", keystore_path=str(ksf))
-    ref = JaxReceiver([], **kw)
-    got = MultiCarrierReceiver([], device=CPU, **kw)
-    for rx in (ref, got):
-        rx.process_iq4c(packed[:half], final=False)
-        rx.process_iq4c(packed[half:], final=True)
-    _same_receivers(ref, got, 8)
-    assert all(c.stats.crc_wrong == 0 and c.stats.crc_ok > 0
-               for c in got.carriers)
-    kinds = np.concatenate([e["kind"] for e in got.native_events])
-    assert (kinds == EV.TRAFFIC).sum() > 0 and (kinds == EV.TLSDU).sum() > 0
+
+    completed = []        # per call: did it complete a BLOCK
+    take = rx_multi._OverlapSave.take
+
+    def counted_take(self, *a):
+        t = take(self, *a)
+        completed.append(t is not None)
+        return t
+    monkeypatch.setattr(rx_multi._OverlapSave, "take", counted_take)
+
+    def run(rx, cuts):
+        completed.clear()
+        for k in range(len(cuts) - 1):
+            rx.process_iq4c(packed[cuts[k]:cuts[k + 1]],
+                            final=k == len(cuts) - 2)
+        return rx
+
+    whole = run(MultiCarrierReceiver([], device=CPU, **kw), [0, S])
+    for cuts in ([0, S // 2, S],
+                 [0, 150, mid, mid + BLOCK - 1, S - 37, S]):
+        ref = run(JaxReceiver([], **kw), cuts)
+        got = run(MultiCarrierReceiver([], device=CPU, **kw), cuts)
+        assert completed == ([True, True] if len(cuts) == 3
+                             else [False, True, False, True, True])
+        _same_receivers(ref, got, 8)
+        assert _carrier_state(got) == _carrier_state(whole), cuts
+        assert all(c.stats.crc_wrong == 0 and c.stats.crc_ok > 0
+                   for c in got.carriers)
+        kinds = np.concatenate([e["kind"] for e in got.native_events])
+        assert (kinds == EV.TRAFFIC).sum() > 0 and \
+            (kinds == EV.TLSDU).sum() > 0
 
 
 def test_bits_entry_matches_jax():
@@ -87,6 +120,54 @@ def test_bits_entry_matches_jax():
         for rx in (ref, got):
             rx.process_bits(batch[:, cuts[k]:cuts[k + 1]], final=last)
     _same_receivers(ref, got, B)
+
+
+@pytest.mark.parametrize("plane", ["native", "python"])
+@pytest.mark.parametrize("front_end", ["pfb", "mixer"])
+def test_construction_per_plane(front_end, plane, monkeypatch):
+    """With a keystore, the native plane builds no TetraReceiver and
+    parses the keystore once (for the C++ walk): each carrier is a
+    CarrierState. The Python plane builds one TetraReceiver per carrier,
+    each parsing the keystore."""
+    from tetra_tpu_torch import prod_fixture, rx
+    from tetra_tpu_torch.crypto import crypto
+    built, parsed = [], []
+    init, load = rx.TetraReceiver.__init__, crypto.load_keystore
+
+    def counted_init(self, *a, **k):
+        built.append(self)
+        init(self, *a, **k)
+
+    def counted_load(*a, **k):
+        parsed.append(a[0])
+        return load(*a, **k)
+    monkeypatch.setattr(rx.TetraReceiver, "__init__", counted_init)
+    monkeypatch.setattr(crypto, "load_keystore", counted_load)
+    monkeypatch.setattr(rx, "load_keystore", counted_load)
+    kw = (dict(offsets_hz=[], pfb_channels=np.arange(8), n_chan=8)
+          if front_end == "pfb" else
+          dict(offsets_hz=(np.arange(8) - 3.5) * 25e3))
+    with prod_fixture.keystore_file() as ks:
+        got = MultiCarrierReceiver(fs=2e5, keystore_path=ks,
+                                   control_plane=plane, device=CPU, **kw)
+    assert len(got.carriers) == 8
+    if plane == "native":
+        assert built == [] and parsed == [ks]
+        assert all(type(c) is rx.CarrierState for c in got.carriers)
+    else:
+        assert built == got.carriers and parsed == [ks] * 8
+        assert all(type(c) is rx.TetraReceiver for c in got.carriers)
+
+
+def test_native_dumpdir_made_at_construction(tmp_path):
+    """A native receiver with dumpdir creates dumpdir/carrier<i> for each
+    carrier when it is built, as the Python plane's receivers do."""
+    got = MultiCarrierReceiver([], fs=2e5, pfb_channels=np.arange(3),
+                               n_chan=8, control_plane="native",
+                               dumpdir=str(tmp_path / "d"), device=CPU)
+    want = [str(tmp_path / "d" / f"carrier{i}") for i in range(3)]
+    assert [c.dumpdir for c in got.carriers] == want
+    assert sorted(str(p) for p in (tmp_path / "d").iterdir()) == want
 
 
 def test_import_is_jax_free(tmp_path):

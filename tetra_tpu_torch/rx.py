@@ -60,9 +60,9 @@ from tetra_tpu_torch.umac.upper_mac import LogicalChannel, TmvUnitdata, \
 from tetra_tpu_torch.utils import trace
 from tetra_tpu_torch.utils.bits import bits_to_uint
 
-__all__ = ["TetraReceiver", "RxStats", "is_bsch", "is_bnch",
-           "decode_slots_multi", "main", "_pack_selected", "_PACK_BITS",
-           "dump_blocks", "voice_frames", "append_files"]
+__all__ = ["TetraReceiver", "CarrierState", "RxStats", "is_bsch",
+           "is_bnch", "decode_slots_multi", "main", "_pack_selected",
+           "_PACK_BITS", "dump_blocks", "voice_frames", "append_files"]
 
 
 def is_bsch(tm: TdmaTime) -> bool:
@@ -294,7 +294,33 @@ def _ubits_str(bits) -> str:
     return (np.asarray(bits, np.uint8) + 48).tobytes().decode("ascii")
 
 
-class TetraReceiver:
+class CarrierState:
+    """What one carrier's decode leaves to its caller: stats, TDMA time,
+    cell identity and scrambling code, the traffic-dump directory
+    (created here) and the tun0 writer of its reassembled SNDCP IP
+    packets (opened on first use). The native control plane keeps one
+    per carrier; TetraReceiver builds on it."""
+
+    def __init__(self, dumpdir: str | None = None):
+        self.dumpdir = dumpdir
+        if dumpdir:
+            os.makedirs(dumpdir, exist_ok=True)
+        self.time = TdmaTime()
+        self.scramb_init = 0         # cell scrambling code (tetra_cell_data)
+        self.mcc = self.mnc = self.colour_code = 0
+        self.stats = RxStats()
+        self._tun = None
+
+    def _ip_out(self, packet: bytes):
+        """Reassembled SNDCP IP payload -> tun0, opened lazily on first
+        use (reference tetra_llc.c:93-101)."""
+        if self._tun is None:
+            from tetra_tpu_torch.io.tun import TunDevice
+            self._tun = TunDevice("tun0")
+        self._tun.write(packet)
+
+
+class TetraReceiver(CarrierState):
     """One carrier's receiver: process_bits walks its hard bits through
     sync, FEC (on `device`, the card unless the caller asks for the CPU)
     and the upper MAC / LLC / MLE / crypto host control plane, logging
@@ -305,12 +331,12 @@ class TetraReceiver:
                  gsmtap_host: str | None = None,
                  decode_voice: bool = False,
                  log=print, device=None):
+        super().__init__(dumpdir)
         self.device = resolve_device(device)
         self.log = log
         self.tcs = CryptoState()
         if keystore_path:
             load_keystore(keystore_path, self.tcs.db)
-        self._tun = None
         self.llc = LlcState(log=self._log_inline,
                             tl_sdu_cb=lambda bits, n: rx_tl_sdu(bits, n, log=self.log),
                             ip_cb=self._ip_out)
@@ -320,14 +346,7 @@ class TetraReceiver:
         self.umac = UpperMac(self.tcs, self.llc,
                              gsmtap_cb=self._gsmtap_cb if self.gsmtap else None,
                              log=log)
-        self.dumpdir = dumpdir
-        if dumpdir:
-            os.makedirs(dumpdir, exist_ok=True)
         self.decode_voice = decode_voice
-        self.time = TdmaTime()
-        self.scramb_init = 0         # cell scrambling code (tetra_cell_data)
-        self.mcc = self.mnc = self.colour_code = 0
-        self.stats = RxStats()
         self._ev_ptr = 0
         # optional TMV-SAP record tap: set to a list to collect one
         # tuple per UNITDATA.ind, mirroring tools/ref_rx.c's REC lines
@@ -353,14 +372,6 @@ class TetraReceiver:
         if drop > 0:
             self._buf = self._buf[drop:]
             self._buf_base = keep_from
-
-    def _ip_out(self, packet: bytes):
-        """Reassembled SNDCP IP payload -> tun0, opened lazily on first
-        use (reference tetra_llc.c:93-101)."""
-        if self._tun is None:
-            from tetra_tpu_torch.io.tun import TunDevice
-            self._tun = TunDevice("tun0")
-        self._tun.write(packet)
 
     def _gsmtap_cb(self, tup: TmvUnitdata):
         self.gsmtap.send(tup.tdma_time, tup.lchan, tup.tdma_time.tn - 1, tup.bits)

@@ -43,8 +43,11 @@ enqueues inside it), "chunk.fetch_wait", "chunk.parse", "chunk.walk" and
 the counter "slots.crc_wrong" adds each block the walk found failing its
 CRC, as RxStats.crc_wrong counts it (a traffic slot carries no CRC).
 
-`carriers` holds one TetraReceiver per carrier on both planes (the
-native plane writes its stats, TDMA time and cell identity there).
+`carriers` holds one entry per carrier: on the Python plane its
+TetraReceiver, on the native plane its rx.CarrierState (stats, TDMA
+time, cell identity, scrambling code, dump directory and tun0 writer,
+which the chunk's egress writes), since the C++ walk keeps the upper
+MAC / LLC / MLE / crypto state and parses the keystore once.
 
 Egress on both planes: every TL-SDU to `tl_sdu_sink(carrier, pdisc,
 pdut, sdu_bits)` (on the Python plane chained after the MLE parse),
@@ -75,6 +78,7 @@ a multi-process mesh.
 """
 from __future__ import annotations
 
+import functools
 import os
 import warnings
 
@@ -87,8 +91,8 @@ from tetra_tpu_torch.fastpath import FastChunkPipeline, _iq_frontend, \
     _iq_to_ri
 from tetra_tpu_torch.phy import channelizer, dqpsk
 from tetra_tpu_torch.phy.sync_vec import MultiSync
-from tetra_tpu_torch.rx import RxStats, TetraReceiver, append_files, \
-    decode_slots_multi, dump_blocks, voice_frames
+from tetra_tpu_torch.rx import CarrierState, RxStats, TetraReceiver, \
+    append_files, decode_slots_multi, dump_blocks, voice_frames
 from tetra_tpu_torch.tdma import TdmaTime
 from tetra_tpu_torch.umac.native_exec import EV, NativeControlPlane
 from tetra_tpu_torch.utils import trace
@@ -137,6 +141,64 @@ def mixer_block(fs: float):
     return BLOCK, L_, M_
 
 
+class _OverlapSave:
+    """Overlap-save bookkeeping of one wideband stream, shared by both
+    front ends: chunks are consumed in BLOCK-aligned quanta (each
+    yielding `block_bits` demod bits per carrier), each continuation
+    re-feeds the last W = 2*BLOCK raw samples, and the bits it
+    re-derives are dropped, so the kept bits of a chunked stream equal
+    a whole-capture run's. bits_len(n_samples) is the front end's demod
+    bit count for a feed."""
+
+    def __init__(self, block: int, block_bits: int, bits_len):
+        self.block = block
+        self.block_bits = block_bits
+        self.bits_len = bits_len
+        self.reset()
+
+    def reset(self):
+        self.rem = None       # raw samples waiting for a whole BLOCK
+        self.hist = None      # the last W raw samples fed
+        self.pos = 0          # absolute sample index of the consumed head
+        self.g = None         # bits each continuation re-derives
+
+    def take(self, raw, k: int, final: bool):
+        """One call's raw samples (k elements per complex sample): (feed
+        with its history, absolute index of the feed's first sample, new
+        bits to keep), or None when the call completes no BLOCK (the
+        samples wait for the next). final ends the stream."""
+        BLOCK = self.block
+        W = 2 * BLOCK
+        data = np.concatenate([raw[:0] if self.rem is None else self.rem,
+                               raw])
+        total = len(data) // k
+        usable = total if final else (total // BLOCK) * BLOCK
+        if usable == 0 or (self.hist is None and usable < W
+                           and not final):
+            self.rem = data
+            if final:
+                self.reset()
+            return None
+        self.rem = data[usable * k:]
+        chunk = data[: usable * k]
+        first = self.hist is None
+        feed = chunk if first else np.concatenate([self.hist, chunk])
+        base = self.pos - (0 if first else W)
+        nbits = self.bits_len(len(feed) // k)
+        keep = nbits if first else max(nbits - self.g, 0)
+        if first and usable % BLOCK == 0:
+            # bits(L) is affine on BLOCK-aligned lengths with slope
+            # block_bits/BLOCK: the first call yields the per-carrier bit
+            # count every continuation must drop
+            self.g = nbits - self.block_bits * (usable // BLOCK - 2)
+        hist_src = chunk if len(chunk) >= W * k else feed
+        self.hist = hist_src[-W * k:]
+        self.pos += usable
+        if final:
+            self.reset()
+        return feed, base, keep
+
+
 class MultiCarrierReceiver:
     @trace.spanned("rx.build")
     def __init__(self, offsets_hz, fs: float, sps: int = 2,
@@ -172,54 +234,26 @@ class MultiCarrierReceiver:
                        else int(round(fs / 25_000.0)))
         n_carriers = (len(self.pfb_channels) if self.pfb_channels is not None
                       else len(self.offsets))
-        self.carriers = []
-        for i in range(n_carriers):
-            # `log` may be one callable shared by all carriers or a
-            # per-carrier sequence of callables
-            if log is None:
-                carrier_log = lambda *a, **k: None
-            elif isinstance(log, (list, tuple)):
-                carrier_log = log[i]
-            else:
-                carrier_log = log
-            self.carriers.append(TetraReceiver(
-                keystore_path=keystore_path,
-                dumpdir=f"{dumpdir}/carrier{i}" if dumpdir else None,
-                # the native plane exports GSMTAP from ONE shared sink fed
-                # by the executor's events, not per-carrier sockets
-                gsmtap_host=(gsmtap_host if control_plane == "python"
-                             else None),
-                decode_voice=decode_voice, log=carrier_log,
-                device=self.device))
         self.control_plane = control_plane
         self.decode_voice = decode_voice
         # generic TL-SDU egress: fn(carrier, pdisc, pdut, sdu_ubits) for
         # every TL-SDU, from either plane
         self.tl_sdu_sink = tl_sdu_sink
-        if tl_sdu_sink is not None and control_plane == "python":
-            for ci, rx in enumerate(self.carriers):
-                # the sink is additive: TetraReceiver wired tl_sdu_cb to
-                # mle.rx_tl_sdu (MLE/CMCE/SNDCP parse + the reference's
-                # log lines); chain it so the L3 parse stays
-                def cb(bits, n, _c=ci, _prev=rx.llc.tl_sdu_cb):
-                    if _prev is not None:
-                        _prev(bits, n)
-                    b = np.asarray(bits)[:n]
-                    pdisc = int(bits_to_uint(b[:3]))
-                    w = {1: 4, 2: 5, 4: 4, 5: 3}.get(pdisc)
-                    pdut = (-1 if w is None
-                            else int(bits_to_uint(b[3:3 + w])))
-                    self.tl_sdu_sink(_c, pdisc, pdut, b)
-                rx.llc.tl_sdu_cb = cb
+        dirs = [f"{dumpdir}/carrier{i}" if dumpdir else None
+                for i in range(n_carriers)]
         self.native_cp = None
         self.gsmtap = None
         self.native_events = []   # accumulated event dicts (native plane)
         if control_plane == "native":
+            # the C++ walk holds the upper MAC / LLC / MLE / crypto state
+            # of every carrier: the receiver keeps what its egress writes
+            self.carriers = [CarrierState(d) for d in dirs]
             self.native_cp = NativeControlPlane(n_carriers)
             if keystore_path:
                 from tetra_tpu_torch.crypto.crypto import load_keystore
                 self.native_cp.set_keys(load_keystore(keystore_path))
             if gsmtap_host:
+                # one shared sink fed by the walk's events
                 from tetra_tpu_torch.io.gsmtap import GsmtapSink
                 self.gsmtap = GsmtapSink(gsmtap_host)
                 self.native_cp.set_gsmtap(True)
@@ -229,6 +263,31 @@ class MultiCarrierReceiver:
             # chunks kept in flight while streaming (final=False)
             self.pipeline_depth = 2
         else:
+            # `log` may be one callable shared by all carriers or a
+            # per-carrier sequence of callables
+            logs = (log if isinstance(log, (list, tuple)) else
+                    [log if log is not None else (lambda *a, **k: None)]
+                    * n_carriers)
+            self.carriers = [TetraReceiver(
+                keystore_path=keystore_path, dumpdir=d,
+                gsmtap_host=gsmtap_host, decode_voice=decode_voice,
+                log=lg, device=self.device) for d, lg in zip(dirs, logs)]
+            if tl_sdu_sink is not None:
+                for ci, rx in enumerate(self.carriers):
+                    # the sink is additive: TetraReceiver wired tl_sdu_cb
+                    # to mle.rx_tl_sdu (MLE/CMCE/SNDCP parse + the
+                    # reference's log lines); chain it so the L3 parse
+                    # stays
+                    def cb(bits, n, _c=ci, _prev=rx.llc.tl_sdu_cb):
+                        if _prev is not None:
+                            _prev(bits, n)
+                        b = np.asarray(bits)[:n]
+                        pdisc = int(bits_to_uint(b[:3]))
+                        w = {1: 4, 2: 5, 4: 4, 5: 3}.get(pdisc)
+                        pdut = (-1 if w is None
+                                else int(bits_to_uint(b[3:3 + w])))
+                        self.tl_sdu_sink(_c, pdisc, pdut, b)
+                    rx.llc.tl_sdu_cb = cb
             self.sync = MultiSync(n_carriers, device=self.device)
             self._buf = np.zeros((n_carriers, 0), dtype=np.uint8)
             self._buf_base = 0
@@ -237,13 +296,15 @@ class MultiCarrierReceiver:
             self._chan_idx = (None if np.array_equal(
                 self.pfb_channels, np.arange(self.n_chan))
                 else chans.to(self.device))
-        self._wb_rem = None
-        self._wb_hist = None
-        self._wb_g = None
-        self._mx_rem = None
-        self._mx_hist = None
-        self._mx_pos = 0      # absolute sample index of the consumed head
-        self._mx_g = None
+            self._overlap = _OverlapSave(
+                25 * self.n_chan, 36, functools.partial(
+                    pfb_demod_bits_len, n_chan=self.n_chan, fs=self.fs,
+                    sps=sps))
+        else:
+            blk = mixer_block(self.fs)
+            self._overlap = None if blk is None else _OverlapSave(
+                blk[0], (blk[0] // blk[1]) * blk[2], functools.partial(
+                    mixer_demod_bits_len, fs=self.fs, sps=sps))
 
     @trace.spanned("call")
     def process_iq(self, wideband_iq, final: bool = True) -> list[RxStats]:
@@ -276,81 +337,71 @@ class MultiCarrierReceiver:
                                      "iq4", final)
 
     def _wideband_stream(self, raw, k: int, fmt: str, final: bool):
-        """Overlap-save streaming for the PFB front end: each
+        """Overlap-save streaming for both front ends (_OverlapSave): each
         continuation re-feeds the last W raw samples, and chunks are
-        consumed in BLOCK-aligned quanta (BLOCK = 25*n_chan samples =
-        exactly 36 demod bits per carrier), so the per-call output's
-        valid region equals the continuous stream's bits. raw: 1-D,
-        k elements per complex sample.
+        consumed in BLOCK-aligned quanta, so the per-call output's valid
+        region equals the continuous stream's bits. raw: 1-D, k elements
+        per complex sample.
 
-        The native plane dispatches the whole chunk (front end, sync,
-        FEC, packing) as one device program; the Python plane runs the
-        front end on the device and walks the kept bits through
-        process_bits. Mixer-bank receivers take _mixer_stream."""
-        if self.pfb_channels is None:
-            return self._mixer_stream(raw, k, fmt, final)
-        if self.control_plane == "native":
-            h = None
-            with trace.span("chunk.submit", fastpath.next_seq()) as sp:
-                take = self._wb_take(raw, k, final)
-                if take is not None:
-                    self._prefetch_pending()
-                    h = self._fast.submit_iq(take[0], fmt, take[1],
-                                             self._chan_idx, self.n_chan,
-                                             self.fs, sps=self.sps)
-                if h is None and sp is not None:
-                    sp.chunk = None     # nothing dispatched
+        The PFB front end: BLOCK = 25*n_chan samples = exactly 36 demod
+        bits per carrier. The mixer bank (carriers at any offset;
+        reference xlating FIR front end,
+        src/demod/osmosdr-tetra_demod_fft.py:74-80): BLOCK is whole fs/36k
+        resampler periods (mixer_block), sized to dominate the 127-tap
+        FIR + resampler + RRC memories, and the oscillator runs at
+        absolute sample indices; a rate whose fs/36k is not rational with
+        a small denominator is demodulated per call, statelessly.
+
+        The native plane dispatches each chunk to the device (the PFB
+        chunk as one program: front end, sync, FEC, packing; the mixer
+        bank's front end, then its bits); the Python plane runs the front
+        end on the device and walks the kept bits through process_bits."""
+        if self._overlap is None and len(raw) == 0:
+            return self._process_bits(
+                np.zeros((len(self.carriers), 0), np.uint8), final=final)
+        if self.control_plane == "python":
+            take = self._take(raw, k, final)
             if take is None:
                 return self._no_chunk(final)
-            return self._native_drain(h, final)
-        take = self._wb_take(raw, k, final)
+            return self._process_bits(self._host_bits(*take, fmt),
+                                      final=final)
+        h = None
+        with trace.span("chunk.submit", fastpath.next_seq()) as sp:
+            take = self._take(raw, k, final)
+            if take is not None:
+                h = self._submit_feed(*take, fmt)
+            if h is None and sp is not None:
+                sp.chunk = None         # nothing dispatched
         if take is None:
             return self._no_chunk(final)
-        feed, keep = take
+        return self._native_drain(h, final)
+
+    def _take(self, raw, k: int, final: bool):
+        """(feed, absolute index of its first sample, bits to keep or
+        None for all) of one call, or None when it completes no BLOCK."""
+        if self._overlap is None:
+            return raw, 0, None
+        return self._overlap.take(raw, k, final)
+
+    def _host_bits(self, feed, base: int, keep, fmt: str):
+        """Python plane: one feed through the front end on the device ->
+        the kept bits on the host [C, keep]."""
+        if self.pfb_channels is None:
+            return self._mixer_bits(feed, fmt, base, keep)
         with trace.span("pyplane.frontend"):
             raw_d = torch.as_tensor(np.asarray(feed)).to(self.device)
             bits = _iq_frontend(raw_d, self._chan_idx, fmt, self.n_chan,
                                 self.fs, self.sps)
-            bits = bits[:, bits.shape[1] - keep:].cpu().numpy() \
+            return bits[:, bits.shape[1] - keep:].cpu().numpy() \
                 .astype(np.uint8)
-        return self._process_bits(bits, final=final)
 
-    def _wb_take(self, raw, k: int, final: bool):
-        """The PFB stream's bookkeeping for one call: (feed with its
-        overlap-save history, new demod bits to keep), or None when the
-        call completes no BLOCK (the samples wait for the next)."""
-        n = self.n_chan
-        BLOCK = 25 * n
-        W = 2 * BLOCK
-        if self._wb_rem is None:
-            self._wb_rem = raw[:0]
-        data = np.concatenate([self._wb_rem, raw])
-        total = len(data) // k
-        usable = (total // BLOCK) * BLOCK
-        if final:
-            usable = total
-        if usable == 0 or (self._wb_hist is None and usable < W
-                           and not final):
-            self._wb_rem = data
-            if final:
-                self._reset_wb_stream()
-            return None
-        self._wb_rem = data[usable * k:]
-        chunk = data[: usable * k]
-        first = self._wb_hist is None
-        feed = chunk if first else np.concatenate([self._wb_hist, chunk])
-        nbits = pfb_demod_bits_len(len(feed) // k, n, self.fs, self.sps)
-        keep = nbits if first else max(nbits - self._wb_g, 0)
-        if first and usable % BLOCK == 0:
-            # bits(L) is affine on BLOCK-aligned lengths with slope
-            # 36/BLOCK: the first call yields the per-carrier bit count
-            # every continuation must drop
-            self._wb_g = nbits - 36 * (usable // BLOCK - 2)
-        hist_src = chunk if len(chunk) >= W * k else feed
-        self._wb_hist = hist_src[-W * k:]
-        if final:
-            self._reset_wb_stream()
-        return feed, keep
+    def _submit_feed(self, feed, base: int, keep, fmt: str):
+        """Native plane: dispatch one feed's chunk; its handle, or None."""
+        if self.pfb_channels is None:
+            return self._submit(self._mixer_bits(feed, fmt, base, keep))
+        self._prefetch_pending()
+        return self._fast.submit_iq(feed, fmt, keep, self._chan_idx,
+                                    self.n_chan, self.fs, sps=self.sps)
 
     def _no_chunk(self, final: bool):
         """A call that completed no chunk: drain on final, else the
@@ -362,92 +413,6 @@ class MultiCarrierReceiver:
             return self._native_drain(None, True)
         return self._process_bits(
             np.zeros((len(self.carriers), 0), np.uint8), final=True)
-
-    def _reset_wb_stream(self):
-        self._wb_hist = None
-        self._wb_rem = self._wb_rem[:0]
-        self._wb_g = None
-
-    def _mixer_stream(self, raw, k: int, fmt: str, final: bool):
-        """Overlap-save streaming for the mixer bank (carriers at any
-        offset; reference xlating FIR front end,
-        src/demod/osmosdr-tetra_demod_fft.py:74-80), as the PFB branch:
-        continuations re-feed the last W raw samples and drop the
-        re-derived bits; chunks are consumed in BLOCK-aligned quanta
-        (whole fs/36k resampler periods, sized to dominate the 127-tap
-        FIR + resampler + RRC memories, with an even number of demod
-        bits per block), and the oscillator runs at absolute sample
-        indices, so a chunked stream's bits equal a whole-capture run's.
-        A rate whose fs/36k is not rational with a small denominator is
-        demodulated per call, statelessly."""
-        blk = mixer_block(self.fs)
-        if blk is None and len(raw) == 0:
-            return self._process_bits(
-                np.zeros((len(self.carriers), 0), np.uint8), final=final)
-        if self.control_plane == "python":
-            take = self._mx_take(raw, k, fmt, final, blk)
-            if take is None:
-                return self._no_chunk(final)
-            return self._process_bits(self._mixer_bits(*take), final=final)
-        h = None
-        with trace.span("chunk.submit", fastpath.next_seq()) as sp:
-            take = self._mx_take(raw, k, fmt, final, blk)
-            if take is not None:
-                h = self._submit(self._mixer_bits(*take))
-            if h is None and sp is not None:
-                sp.chunk = None         # nothing dispatched
-        if take is None:
-            return self._no_chunk(final)
-        return self._native_drain(h, final)
-
-    def _mx_take(self, raw, k: int, fmt: str, final: bool, blk):
-        """The mixer stream's bookkeeping for one call: the arguments of
-        _mixer_bits (feed with its history, format, absolute index of its
-        first sample, new bits to keep), or None when the call completes
-        no BLOCK. blk: mixer_block(fs); None demodulates the call
-        alone."""
-        if blk is None:
-            return raw, fmt, 0, None
-        BLOCK, L_, M_ = blk
-        W = 2 * BLOCK
-        if self._mx_rem is None:
-            self._mx_rem = raw[:0]
-        data = np.concatenate([self._mx_rem, raw])
-        total = len(data) // k
-        usable = (total // BLOCK) * BLOCK
-        if final:
-            usable = total
-        if usable == 0 or (self._mx_hist is None and usable < W
-                           and not final):
-            self._mx_rem = data
-            if final:
-                self._reset_mx_stream()
-            return None
-        self._mx_rem = data[usable * k:]
-        chunk = data[: usable * k]
-        first = self._mx_hist is None
-        feed = chunk if first else np.concatenate([self._mx_hist, chunk])
-        base = self._mx_pos - (0 if first else W)
-        nbits = mixer_demod_bits_len(len(feed) // k, self.fs, self.sps)
-        keep = nbits if first else max(nbits - self._mx_g, 0)
-        if first and usable % BLOCK == 0:
-            # bits(L) is affine on BLOCK-aligned lengths with slope
-            # bpb/BLOCK: the first call yields the per-carrier bit count
-            # every continuation must drop
-            bpb = (BLOCK // L_) * M_
-            self._mx_g = nbits - bpb * (usable // BLOCK - 2)
-        hist_src = chunk if len(chunk) >= W * k else feed
-        self._mx_hist = hist_src[-W * k:]
-        self._mx_pos += usable
-        if final:
-            self._reset_mx_stream()
-        return feed, fmt, base, keep
-
-    def _reset_mx_stream(self):
-        self._mx_hist = None
-        self._mx_rem = self._mx_rem[:0]
-        self._mx_pos = 0
-        self._mx_g = None
 
     def _mixer_bits(self, feed, fmt: str, base: int, keep: int | None):
         """Mixer-bank front end on the device: raw samples in format
