@@ -6,7 +6,9 @@ collector and the overflow re-run are counted, and every span is a
 soft receiver adds the span "chunk.fec.k4" and the counter
 "fec.soft_rows"; "slots.crc_wrong" counts the blocks the walk found
 failing their CRC, as the JAX package's receiver counts them. The
-rtl-sdr ingest's u8 conversion is a span "io.u8" of its own."""
+rtl-sdr ingest's u8 conversion is a span "io.u8" of its own. The bundle
+parse counts each chunk's rows as "parse.rows_native" where the host
+library ran it, "parse.rows_numpy" where the numpy fallback did."""
 import gc
 from collections import Counter
 
@@ -14,7 +16,7 @@ import numpy as np
 import pytest
 
 from tests._torch_util import CPU
-from tetra_tpu_torch import fastpath, prod_fixture
+from tetra_tpu_torch import fastpath, hostlib, prod_fixture
 from tetra_tpu_torch.io.sdr import RtlTcpSource
 from tetra_tpu_torch.rx_multi import MultiCarrierReceiver
 from tetra_tpu_torch.umac import native_exec
@@ -170,6 +172,42 @@ def test_overflow_rerun_is_counted(capture, traced, monkeypatch):
     assert trace.counters()["chunk.reruns"] == len(calls)
     assert trace.spans()["chunk.rerun"]["count"] == len(calls)
     assert got == want
+
+
+def test_parse_rows_are_counted_under_the_parse_that_ran(capture, traced,
+                                                        monkeypatch):
+    """With the host library, parse.rows_native sums the rows of every
+    collected chunk and parse.rows_numpy is absent; with the library
+    taken away the numpy fallback counts them as parse.rows_numpy, and
+    the pass decodes the same."""
+    if hostlib.lib() is None:
+        pytest.skip("host library cannot be built or loaded")
+    # each collected chunk's dict once: after an overflow re-run the
+    # nested collect and the outer one return the same dict
+    dicts = []
+    collect = fastpath.FastChunkPipeline.collect
+
+    def counted(self, h):
+        d = collect(self, h)
+        if not any(d is x for x in dicts):
+            dicts.append(d)
+        return d
+
+    monkeypatch.setattr(fastpath.FastChunkPipeline, "collect", counted)
+    rx = one_pass(capture)
+    want = results(rx)
+    c = trace.counters()
+    assert len(dicts) == len(rx.native_events) >= 3
+    assert c["parse.rows_native"] == sum(len(d["carrier"]) for d in dicts) > 0
+    assert "parse.rows_numpy" not in c
+    trace.reset()
+    dicts.clear()
+    monkeypatch.setattr(hostlib, "lib", lambda: None)
+    rx = one_pass(capture)
+    c = trace.counters()
+    assert c["parse.rows_numpy"] == sum(len(d["carrier"]) for d in dicts) > 0
+    assert "parse.rows_native" not in c
+    assert results(rx) == want
 
 
 def test_spans_are_profiler_ranges(capture, traced):

@@ -14,10 +14,11 @@ t4_b2 [G, 216] (each slot's type-4 bits: the whole 432-bit block, and
 the second half with its own keystream), which stay on the device for
 the receiver's traffic dumps and voice decode. The ring tail, the sync
 carry and the scrambling codes stay on the device between chunks. On the host the
-bundle is parsed with numpy (`_decode_segments`) and walked by the C++
-control plane. If a chunk emits more slots than the row budget G, the
-chunk re-runs from its saved inputs with the sufficient budget
-(`_overflow_rerun`).
+bundle is parsed in one C++ pass over its rows (`_decode_segments`, the
+port's host library `hostsrc/bundle.cpp`; numpy where that library
+cannot be built) and walked by the C++ control plane. If a chunk emits
+more slots than the row budget G, the chunk re-runs from its saved
+inputs with the sufficient budget (`_overflow_rerun`).
 
 Soft mode (soft=True, the receiver's demod="soft"): the demod emits
 int8 reliabilities (positive = bit 0) and the ring carries them; the
@@ -53,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from tetra_tpu_torch import constants as C
+from tetra_tpu_torch import hostlib
 from tetra_tpu_torch.io import stream
 from tetra_tpu_torch.parallel import collectives
 from tetra_tpu_torch.parallel.mesh import mesh_size
@@ -362,6 +364,71 @@ def _absorb(ring, packed, lc: int, lc_pad: int, soft: bool = False):
     return win[:, lc:lc + RING_PAD].contiguous()
 
 
+# the int32 row fields of the collect dict, in tt_parse_rows's order
+_ROW_FIELDS = ("carrier", "okA", "okB", "kind", "delta")
+
+
+def _parse_rows_native(lib, rows: np.ndarray, tot_s: np.ndarray) -> dict:
+    """The row fields of the collect dict, as `_parse_rows_numpy` gives
+    them, from the valid rows rows[i, :tot_s[i]] of each shard i (rows
+    [k, gl, ROW_BYTES] uint8, C-contiguous): the host library's one pass
+    (`hostsrc/bundle.cpp`), shard by shard into slices of one output."""
+    if (rows.dtype != np.uint8 or not rows.flags.c_contiguous
+            or rows.shape[2] != ROW_BYTES or (tot_s > rows.shape[1]).any()):
+        raise ValueError("rows must be [k, gl, ROW_BYTES] uint8, "
+                         "C-contiguous, with tot_s <= gl")
+    total = int(tot_s.sum())
+    out = {k: np.empty(total, np.int32) for k in _ROW_FIELDS}
+    out["payload"] = np.empty((total, 408), np.uint8)
+    invalid, o = 0, 0
+    for i, n in enumerate(tot_s.tolist()):
+        if n:
+            invalid += lib.tt_parse_rows(
+                rows[i].ctypes.data, n, out["payload"][o:].ctypes.data,
+                *(out[k][o:].ctypes.data for k in _ROW_FIELDS))
+        o += n
+    if invalid:
+        raise RuntimeError("valid rows must form a prefix")
+    return out
+
+
+def _parse_rows_numpy(sel: np.ndarray) -> dict:
+    """The row fields of the collect dict from the valid rows sel [n,
+    ROW_BYTES] uint8 with numpy: the fallback of the host library's
+    pass, and its oracle in the tests."""
+    total = len(sel)
+    f = sel[:, _SEC_BYTES].astype(np.int32)
+    if not (f & 16).all():
+        raise RuntimeError("valid rows must form a prefix")
+    cars = (sel[:, _SEC_BYTES + 2].astype(np.int32)
+            | (sel[:, _SEC_BYTES + 3].astype(np.int32) << 8))
+    # re-expand the per-kind packed sections to the canonical
+    # [n, 408] row (A 268 | B 124 | BBK 14 | okA | okB)
+    sec = np.unpackbits(np.ascontiguousarray(sel[:, :_SEC_BYTES]),
+                        axis=1)
+    kk = f & 3
+    payload = np.zeros((total, 408), np.uint8)
+    m = kk == 0
+    payload[m, 0:60] = sec[m, 0:60]
+    payload[m, 268:392] = sec[m, 60:184]
+    payload[m, 392:406] = sec[m, 184:198]
+    m = kk == 1
+    payload[m, 0:268] = sec[m, 0:268]
+    payload[m, 392:406] = sec[m, 268:282]
+    m = kk == 2
+    payload[m, 0:124] = sec[m, 0:124]
+    payload[m, 268:392] = sec[m, 124:248]
+    payload[m, 392:406] = sec[m, 248:262]
+    return {
+        "carrier": cars,
+        "okA": (f >> 2) & 1,
+        "okB": (f >> 3) & 1,
+        "kind": kk,
+        "delta": sel[:, _SEC_BYTES + 1].astype(np.int32),
+        "payload": payload,
+    }
+
+
 @dataclass(eq=False)
 class ChunkHandle:
     """A dispatched chunk whose bundle has not been fetched. Holds the
@@ -662,7 +729,9 @@ class FastChunkPipeline:
     def _decode_segments(self, G: int, segs: np.ndarray, ids) -> dict | None:
         """Parse bundle segments segs [k, G/ns*ROW_BYTES + B/ns*32] of
         the shards `ids` into the collect dict; None signals a row-budget
-        overflow in any of them."""
+        overflow in any of them. The rows go through the host library's
+        one pass (`hostsrc/bundle.cpp`), or `_parse_rows_numpy` where
+        the library cannot be loaded."""
         ns = self.shards
         gl = G // ns
         Bl = self.n // ns
@@ -676,46 +745,26 @@ class FastChunkPipeline:
             return None
         side_carrier = (ids[:, None] * Bl
                         + np.arange(Bl, dtype=np.int32)).reshape(-1)
-        sel = np.concatenate([rows[i, :tot_s[i]] for i in range(k)])
         slot_ref = np.concatenate(
             [ids[i] * gl + np.arange(tot_s[i], dtype=np.int32)
              for i in range(k)]).astype(np.int32)
-        total = len(sel)
         side = side.reshape(-1, SIDE_I32).copy()
-        f = sel[:, _SEC_BYTES].astype(np.int32)
-        if not (f & 16).all():
-            raise RuntimeError("valid rows must form a prefix")
-        cars = (sel[:, _SEC_BYTES + 2].astype(np.int32)
-                | (sel[:, _SEC_BYTES + 3].astype(np.int32) << 8))
-        # re-expand the per-kind packed sections to the canonical
-        # [n, 408] row (A 268 | B 124 | BBK 14 | okA | okB)
-        sec = np.unpackbits(np.ascontiguousarray(sel[:, :_SEC_BYTES]),
-                            axis=1)
-        kk = f & 3
-        payload = np.zeros((total, 408), np.uint8)
-        m = kk == 0
-        payload[m, 0:60] = sec[m, 0:60]
-        payload[m, 268:392] = sec[m, 60:184]
-        payload[m, 392:406] = sec[m, 184:198]
-        m = kk == 1
-        payload[m, 0:268] = sec[m, 0:268]
-        payload[m, 392:406] = sec[m, 268:282]
-        m = kk == 2
-        payload[m, 0:124] = sec[m, 0:124]
-        payload[m, 268:392] = sec[m, 124:248]
-        payload[m, 392:406] = sec[m, 248:262]
-        return {
-            "carrier": cars,
-            "okA": (f >> 2) & 1,
-            "okB": (f >> 3) & 1,
-            "kind": kk,
-            "delta": sel[:, _SEC_BYTES + 1].astype(np.int32),
-            "payload": payload,
+        lib = hostlib.lib()
+        if lib is None:
+            d = _parse_rows_numpy(
+                np.concatenate([rows[i, :tot_s[i]] for i in range(k)]))
+        else:
+            d = _parse_rows_native(lib, rows, tot_s)
+        if trace.enabled():
+            trace.count("parse.rows_numpy" if lib is None
+                        else "parse.rows_native", len(slot_ref))
+        d.update({
             "slot_ref": slot_ref,
             "n_slots": side[:, 0], "tail": side[:, 1],
             "scramb": side[:, 7].view(np.uint32),
             "side_carrier": side_carrier,
-        }
+        })
+        return d
 
     def _dispatch(self, h: ChunkHandle, g_rows: int, scr_override=None):
         """(Re-)run a chunk from its saved closure with row budget
