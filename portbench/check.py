@@ -46,7 +46,20 @@ readings PERF.md lists; the exact ones have the limit 0):
   discriminator, PDU type, length, in order) differ from the reference
   walk's;
 - passes_differing: passes of the window whose per-carrier results
-  (bursts, CRC counts, cell, TL-SDU count) differ from the check pass's.
+  (bursts, CRC counts, cell, TL-SDU count; with egress also the blocks,
+  voice frames, bytes and files of each carrier's dump directory, by
+  its listing after the pass) differ from the check pass's.
+
+On a configuration with `egress` (egress.py) two more, both exact:
+
+- dumps_differing: the check pass's dump blocks (`.out`) and `.txt`
+  lines that differ from the reference's (`reference/voice.py` over the
+  reference's own descrambled type-4 bits of each traffic slot that the
+  reference walk dumps, on every carrier), by file (usage and timeslot)
+  and in slot order, or that one side alone has;
+- voice_differing: the same of the `.cod` voice frames (the TCH/S
+  decode, the codec order, the voice keystream of a TEA1 slot, which
+  the reference walk makes), on every carrier.
 """
 from __future__ import annotations
 
@@ -55,11 +68,15 @@ import math
 import numpy as np
 import torch
 
+from portbench import egress
 from portbench.reference import fec, frontend, sync, walk_ref
 
 LIMITS = {"fe_rel_err": 1e-4, "demod_rel_err": 1e-4, "decisions_far": 0,
           "feeds_differing": 0, "slots_differing": 0, "bursts_differing": 0,
-          "cells_differing": 0, "walk_differing": 0, "passes_differing": 0}
+          "cells_differing": 0, "walk_differing": 0, "passes_differing": 0,
+          "dumps_differing": 0, "voice_differing": 0}
+# compared only on a configuration with `egress`
+EGRESS_NUMBERS = ("dumps_differing", "voice_differing")
 # float32's own rounding in the soft slicer (the mean magnitude, the
 # division, the scale by 31) as a share of the scaled value, with room:
 # it is of the order of 1e-7 (a few ulps)
@@ -265,8 +282,10 @@ def chain(cfg: dict, stream: torch.Tensor) -> dict:
     """Sync, FEC and cells over each carrier's whole stream of decisions
     [B, T] (the slicer's). Returns {'burst', 'emit' [B, steps] (the
     synchroniser's processed-burst and emitted-slot flags), 'slots':
-    {carrier: (burst index, kind, rows)}, 'bursts' [B], 'cells' [B, 3]
-    (colour code, MCC, MNC of the last SYNC block that passed its CRC)}."""
+    {carrier: (burst index, kind, rows)}, 'slot_pos': {carrier: stream
+    offsets of those slots}, 'stream' (the hard bits [B, T]), 'bursts'
+    [B], 'cells' [B, 3] (colour code, MCC, MNC of the last SYNC block
+    that passed its CRC)}."""
     soft = None
     if slicer(cfg) == "soft":
         soft, stream = stream, (stream < 0).to(torch.int8)
@@ -280,16 +299,18 @@ def chain(cfg: dict, stream: torch.Tensor) -> dict:
     car, step = np.nonzero(emit)
     rows = fec.decode_slots(stream, car, slot[car, step].astype(np.int64),
                             col[car, step].astype(np.int64), soft)
-    slots, cells = {}, np.zeros((B, 3), np.int64)
+    slots, pos, cells = {}, {}, np.zeros((B, 3), np.int64)
     for c in range(B):
         m = car == c
         slots[c] = (bc[c, step[m]], col[c, step[m]].astype(np.int64), rows[m])
+        pos[c] = slot[c, step[m]].astype(np.int64)
         ok_sb1 = (slots[c][1] == 0) & (rows[m][:, fec.ROW - 2] == 1)
         if ok_sb1.any():
             t1 = rows[m][np.flatnonzero(ok_sb1)[-1], :60].astype(np.int64)
             u = lambda lo, n: int(t1[lo:lo + n] @ (1 << np.arange(n - 1, -1, -1)))
             cells[c] = (u(4, 6), u(31, 10), u(41, 14))
-    return {"burst": burst, "emit": emit, "slots": slots,
+    return {"burst": burst, "emit": emit, "slots": slots, "slot_pos": pos,
+            "stream": stream,
             "bursts": bc[:, -1] if bc.shape[1] else np.zeros(B, np.int64),
             "cells": cells}
 
@@ -396,16 +417,25 @@ def evaluate(cfg: dict, cap: dict, record: dict, summaries: list,
     res["cells_differing"] = int((last[:, 3:6] != ref["cells"]).any(1).sum())
     n_walk, n_sdus = 0, 0
     sample = walk_sample(cfg, cap, seed)
+    eg = egress.enabled(cfg)
+    walks = {}
     for c in sample:
         w = walk_ref.walk_carrier(ref["burst"][c], ref["emit"][c],
                                   ref["slots"][c][2], ref["slots"][c][1],
-                                  ks_path)
+                                  ks_path, traffic=eg)
+        walks[int(c)] = w
         got = (int(last[c, 1]), int(last[c, 2]),
                program_tl_sdus(record["native_events"], c))
         n_walk += got != (w["crc_ok"], w["crc_wrong"], w["tl_sdus"])
         n_sdus += len(w["tl_sdus"])
     res["walk_differing"] = n_walk
-    res["passes_differing"] = sum(not np.array_equal(s, last)
+    whole = last
+    if eg:
+        whole = np.concatenate([last.ravel(), record["egress"].ravel()])
+        numbers, eg_compared = egress.evaluate(ref, record["egress_files"],
+                                               walks, ks_path, n_car)
+        res.update(numbers)
+    res["passes_differing"] = sum(not np.array_equal(s, whole)
                                   for s in summaries)
     compared = {"feeds": len(feeds),
                 "slots": sum(len(v[0]) for v in ref["slots"].values()),
@@ -420,8 +450,18 @@ def evaluate(cfg: dict, cap: dict, record: dict, summaries: list,
                 "crc_ok": int(last[:, 1].sum()),
                 "crc_wrong": int(last[:, 2].sum()),
                 "tl_sdus": int(last[:, 6].sum())}
+    if eg:
+        compared.update(eg_compared)
     return res, compared
 
 
-def verdict(numbers: dict) -> bool:
-    return all(numbers[k] <= LIMITS[k] for k in LIMITS)
+def limits(cfg: dict) -> dict:
+    """The numbers a configuration's check compares, with their limits:
+    LIMITS, the egress numbers only where it has `egress`."""
+    if egress.enabled(cfg):
+        return dict(LIMITS)
+    return {k: v for k, v in LIMITS.items() if k not in EGRESS_NUMBERS}
+
+
+def verdict(numbers: dict, limits: dict) -> bool:
+    return all(numbers[k] <= limits[k] for k in limits)

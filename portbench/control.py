@@ -44,10 +44,7 @@ def readings(workload: str, seed: int, programs: int = 1,
             cell.one_pass()
             summaries = []
             for _ in range(programs):
-                mrx = cell.one_pass()["mrx"]
-                summaries.append(check.pass_summary(mrx.carriers,
-                                                    mrx.native_events))
-                del mrx
+                summaries.append(run.summarised(cell.one_pass()))
             record = run.recorded_pass(cell)
             out["program"], out["compared"] = check.evaluate(
                 cfg, cap, record, summaries, seed, ks, dev)

@@ -169,6 +169,41 @@ def sb1_code(t1: torch.Tensor) -> torch.Tensor:
         | C.SCRAMB_INIT
 
 
+def slot_bits(stream: torch.Tensor, car: np.ndarray, pos: np.ndarray
+              ) -> torch.Tensor:
+    """The 510 values of each slot (carrier car [S], stream offset pos
+    [S]) of the streams [B, T] -> [S, 510]."""
+    dev = stream.device
+    idx = (torch.as_tensor(pos, device=dev)[:, None]
+           + torch.arange(C.BITS_PER_TS, device=dev)[None])
+    return stream[torch.as_tensor(car, device=dev)[:, None], idx]
+
+
+def slot_codes(bursts: torch.Tensor, car: np.ndarray, kind: np.ndarray):
+    """Each emitted slot's scrambling code, from the hard bits [S, 510]
+    of the slots in order within each carrier (car [S], kind [S]): the
+    code that the last SYNC slot at or before it on its carrier names,
+    where that slot's SB1 passed its CRC with the BSCH code, else the
+    receiver's initial 0. Returns (codes [S] int64, the SYNC slots' SB1
+    type-1 bits, their CRC flags)."""
+    dev = bursts.device
+    S = len(car)
+    sync = np.flatnonzero(kind == 0)
+    sb1_t5 = bursts[torch.as_tensor(sync, device=dev),
+                    C.SB_BLK1_OFFSET:C.SB_BLK1_OFFSET + C.SB_BLK1_BITS]
+    sb1, sb1_ok = decode_block(
+        "SB1", sb1_t5, torch.full((len(sync),), C.SCRAMB_INIT,
+                                  dtype=torch.int64, device=dev))
+    have = np.zeros(S, bool)
+    have[sync] = sb1_ok.cpu().numpy()
+    code_at = np.zeros(S, np.int64)
+    code_at[sync] = sb1_code(sb1).cpu().numpy()
+    last = np.maximum.accumulate(np.where(have, np.arange(S), -1))
+    same = (last >= 0) & (car[np.maximum(last, 0)] == car)
+    codes_np = np.where(same, code_at[np.maximum(last, 0)], 0)
+    return torch.as_tensor(codes_np, device=dev), sb1, sb1_ok
+
+
 def decode_slots(stream: torch.Tensor, car: np.ndarray, pos: np.ndarray,
                  kind: np.ndarray, soft: torch.Tensor | None = None
                  ) -> np.ndarray:
@@ -181,28 +216,10 @@ def decode_slots(stream: torch.Tensor, car: np.ndarray, pos: np.ndarray,
     out = np.zeros((S, ROW), np.uint8)
     if S == 0:
         return out
-    idx = (torch.as_tensor(pos, device=dev)[:, None]
-           + torch.arange(C.BITS_PER_TS, device=dev)[None])
-    rows_of = torch.as_tensor(car, device=dev)[:, None]
-    bursts = stream[rows_of, idx]
-    blocks = bursts if soft is None else soft[rows_of, idx]
-    # SB1 of the SYNC slots, with the BSCH code, and the code it names
+    bursts = slot_bits(stream, car, pos)
+    blocks = bursts if soft is None else slot_bits(soft, car, pos)
     sync = np.flatnonzero(kind == 0)
-    sb1_t5 = bursts[torch.as_tensor(sync, device=dev),
-                    C.SB_BLK1_OFFSET:C.SB_BLK1_OFFSET + C.SB_BLK1_BITS]
-    sb1, sb1_ok = decode_block(
-        "SB1", sb1_t5, torch.full((len(sync),), C.SCRAMB_INIT,
-                                  dtype=torch.int64, device=dev))
-    # each slot's code: the last CRC-OK SB1 at or before it on its
-    # carrier, else the receiver's initial 0
-    have = np.zeros(S, bool)
-    have[sync] = sb1_ok.cpu().numpy()
-    code_at = np.zeros(S, np.int64)
-    code_at[sync] = sb1_code(sb1).cpu().numpy()
-    last = np.maximum.accumulate(np.where(have, np.arange(S), -1))
-    same = (last >= 0) & (car[np.maximum(last, 0)] == car)
-    codes_np = np.where(same, code_at[np.maximum(last, 0)], 0)
-    codes = torch.as_tensor(codes_np, device=dev)
+    codes, sb1, sb1_ok = slot_codes(bursts, car, kind)
 
     # the AACH block of every slot: descrambled systematic bits
     sync_t = torch.as_tensor(kind == 0, device=dev)[:, None]

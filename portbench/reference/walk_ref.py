@@ -3,7 +3,10 @@ reference's own synchroniser steps and decoded rows: the TDMA clock
 (one slot a processed burst, set by each SYNC block that passes its
 CRC), the CRC counts, the cell identity and every TL-SDU, through the
 frozen copy of the Python control plane in `walk/` (TetraReceiver's
-_walk_slot, tetra_lower_mac.c:115-357).
+_walk_slot, tetra_lower_mac.c:115-357); and, where asked, the traffic
+slots the walk hands to the dumps (tetra_lower_mac.c:198-241) with
+their usage, timeslot and voice keystream (tetra_crypto.c:254-282, as
+TetraReceiver._voice_keystream selects it).
 """
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ import numpy as np
 
 from portbench.reference.fec import PACK_A, PACK_B, ROW
 from portbench.reference.walk.bits import bits_to_uint
+from portbench.reference.walk import crypto
 from portbench.reference.walk.crypto import CryptoState, load_keystore
 from portbench.reference.walk.llc import LlcState
 from portbench.reference.walk.tdma import TdmaTime
@@ -23,16 +27,32 @@ def _quiet(*a, **k):
     return None
 
 
+def voice_keystream(tcs: CryptoState, time: TdmaTime):
+    """A traffic slot's 274 voice keystream bits where a cipher key is
+    selected and the cell and clock are complete, else None: the slot's
+    voice is clear."""
+    key = tcs.cck
+    if (key is None or not (1 <= time.tn <= 4 and 1 <= time.fn <= 18
+                            and 1 <= time.mn <= 60)
+            or tcs.cn < 0 or tcs.la < 0 or tcs.cc < 0
+            or key.network_info.ksg_type not in crypto._KSGS):
+        return None
+    return crypto.generate_keystream(tcs, key, time, 274)
+
+
 def walk_carrier(burst: np.ndarray, emit: np.ndarray, rows: np.ndarray,
-                 kinds: np.ndarray, keystore_path: str | None) -> dict:
+                 kinds: np.ndarray, keystore_path: str | None,
+                 traffic: bool = False) -> dict:
     """One carrier: burst, emit [steps] bool, the emitted slots' packed
     rows [n, ROW] and kinds [n] in step order -> {'bursts', 'crc_ok',
     'crc_wrong', 'cell' (colour code, mcc, mnc), 'tl_sdus' [(pdisc,
-    pdut, bits)]}."""
+    pdut, bits)]}. With `traffic` also 'traffic' [(slot j, NDB second
+    half, usage, timeslot 0-3, voice keystream)], each slot the walk
+    dumps, in order; the keystream is None for clear voice."""
     tcs = CryptoState()
     if keystore_path:
         load_keystore(keystore_path, tcs.db)
-    sdus = []
+    sdus, dumped = [], []
 
     def on_sdu(bits, n):
         b = np.asarray(bits)[:n]
@@ -50,6 +70,11 @@ def walk_carrier(burst: np.ndarray, emit: np.ndarray, rows: np.ndarray,
 
     def count(ok):
         st["crc_ok" if ok else "crc_wrong"] += 1
+
+    def dump(j, half):
+        if traffic:
+            dumped.append((j, half, umac.cur_burst_is_traffic, time.tn - 1,
+                           voice_keystream(tcs, time)))
 
     def dispatch(t1, lchan, ok, blk):
         umac.rx_slot(t1, lchan, bool(ok), time, blk_num=blk,
@@ -92,6 +117,8 @@ def walk_carrier(burst: np.ndarray, emit: np.ndarray, rows: np.ndarray,
             if not umac.cur_burst_is_traffic:
                 count(okA)
                 dispatch(r[:268], LC.SCH_F, okA, 0)
+            else:
+                dump(j - 1, False)
         else:
             dispatch(bbk, LC.AACH, True, 0)
             if umac.cur_burst_is_traffic:
@@ -101,9 +128,14 @@ def walk_carrier(burst: np.ndarray, emit: np.ndarray, rows: np.ndarray,
                 if umac.blk2_stolen:
                     count(okB)
                     dispatch(r[PACK_A:PACK_A + 124], LC.UNKNOWN, okB, 2)
+                else:
+                    dump(j - 1, True)
             else:
                 count(okA)
                 dispatch(r[:124], LC.UNKNOWN, okA, 1)
                 count(okB)
                 dispatch(r[PACK_A:PACK_A + 124], LC.UNKNOWN, okB, 2)
-    return {**st, "cell": tuple(cell), "tl_sdus": sdus}
+    out = {**st, "cell": tuple(cell), "tl_sdus": sdus}
+    if traffic:
+        out["traffic"] = dumped
+    return out

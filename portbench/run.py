@@ -17,6 +17,14 @@ receiver calls (the check pass) runs with its outputs recorded; they
 are compared with the plain reference, and every pass of the window is
 held to it (check.py). The last line of standard output is the result,
 one JSON object.
+
+A configuration with the key `"egress": true` runs the receiver's
+traffic dumps and TCH/S voice frames on the timed path: each pass's receiver writes into a fresh directory under the
+process's TMPDIR, made before the pass's clock starts and removed after
+it stops (egress.py); the check pass's files are held to the plain
+reference (`dumps_differing`, `voice_differing`) and each window pass's
+listing to the check pass's. A configuration without the key runs as if
+the key did not exist.
 """
 from __future__ import annotations
 
@@ -73,7 +81,6 @@ def recorded_pass(cell: "Cell") -> dict:
     at the demod rate), each demod call's phasors before the slicer, the
     slicer's hard bits or soft values, and each collected chunk's dict.
     Returns the record check.evaluate reads."""
-    from portbench.check import pass_summary
     from portbench.spans import Patches
     fe, dm, dec, collects = [], [], [], []
 
@@ -117,11 +124,16 @@ def recorded_pass(cell: "Cell") -> dict:
             p.wrap(("tetra_tpu_torch.phy.dqpsk", slicer), kept(dec))
         p.wrap(("tetra_tpu_torch.fastpath", "FastChunkPipeline.collect"),
                collect)
-        mrx = cell.one_pass()["mrx"]
+        out = cell.one_pass(read_dumps=True)
     finally:
         p.restore()
-    return {"fe": fe, "dm": dm, "dec": dec, "collects": collects,
-            "carriers": mrx.carriers, "native_events": mrx.native_events}
+    mrx = out["mrx"]
+    record = {"fe": fe, "dm": dm, "dec": dec, "collects": collects,
+              "carriers": mrx.carriers, "native_events": mrx.native_events}
+    if "egress" in out:
+        record["egress"] = out["egress"]
+        record["egress_files"] = out["egress_files"]
+    return record
 
 
 class Cell:
@@ -147,48 +159,71 @@ class Cell:
             self.calls = [("iq4c", host[a:b], None, k == len(cuts) - 2)
                           for k, (a, b) in enumerate(zip(cuts, cuts[1:]))]
         self.chunks = sum(c[1] is not None for c in self.calls)
+        from portbench import egress
+        self.egress = egress.enabled(cfg)
 
-    def receiver(self):
+    def receiver(self, dumpdir: str | None = None):
+        """A fresh receiver; with a dump directory (a configuration with
+        `egress`), it writes its dumps there."""
         from tetra_tpu_torch.rx_multi import MultiCarrierReceiver
         cfg = self.cfg
+        extra = {} if dumpdir is None else {
+            "dumpdir": dumpdir, "decode_voice": True}
         if cfg["front_end"] == "pfb":
             n = int(cfg["n_chan"])
             mrx = MultiCarrierReceiver(
                 [], fs=float(cfg["fs"]), pfb_channels=np.arange(n), n_chan=n,
                 keystore_path=self.ks_path, control_plane="native",
-                demod=cfg["demod"], device=self.device)
+                demod=cfg["demod"], device=self.device, **extra)
         else:
             mrx = MultiCarrierReceiver(
                 self.cap["offsets_hz"], fs=float(cfg["fs"]),
                 keystore_path=self.ks_path, control_plane="native",
-                demod=cfg["demod"], device=self.device)
+                demod=cfg["demod"], device=self.device, **extra)
         if mrx.pipeline_depth != int(cfg["pipeline_depth"]):
             raise RuntimeError("the receiver's pipeline depth is not the "
                                "configuration's")
         return mrx
 
-    def one_pass(self) -> dict:
+    def one_pass(self, read_dumps: bool = False) -> dict:
         """One capture through a fresh receiver: {'t0', 't1', 'calls'
-        [(start, end, events out after it, submits a chunk)], 'mrx'}."""
+        [(start, end, events out after it, submits a chunk)], 'mrx'},
+        and with egress 'egress': the pass's dump directory listed
+        after t1 (egress.listing), and with `read_dumps` 'egress_files':
+        its files read whole (egress.contents). The directory is made
+        before t0 and removed after t1."""
         from torch.profiler import record_function
-        t0 = time.perf_counter()
-        with record_function("pb:receiver"):
-            mrx = self.receiver()
-        calls = []
-        for kind, data, conv, final in self.calls:
-            s = time.perf_counter()
-            with record_function("pb:call"):
-                if kind == "iq4c":
-                    mrx.process_iq4c(data, final=final)
-                elif data is None:
-                    mrx.process_iq(np.zeros(0, np.complex64), final=True)
-                else:
-                    mrx.process_iq(conv(data), final=final)
-            e = time.perf_counter()
-            calls.append((s, e, len(mrx.native_events), data is not None))
-        self.sync()
-        return {"t0": t0, "t1": time.perf_counter(), "calls": calls,
-                "mrx": mrx}
+        from portbench import egress
+        dumpdir = egress.make_dir() if self.egress else None
+        try:
+            t0 = time.perf_counter()
+            with record_function("pb:receiver"):
+                mrx = self.receiver(dumpdir)
+            calls = []
+            for kind, data, conv, final in self.calls:
+                s = time.perf_counter()
+                with record_function("pb:call"):
+                    if kind == "iq4c":
+                        mrx.process_iq4c(data, final=final)
+                    elif data is None:
+                        mrx.process_iq(np.zeros(0, np.complex64), final=True)
+                    else:
+                        mrx.process_iq(conv(data), final=final)
+                e = time.perf_counter()
+                calls.append((s, e, len(mrx.native_events),
+                              data is not None))
+            self.sync()
+            out = {"t0": t0, "t1": time.perf_counter(), "calls": calls,
+                   "mrx": mrx}
+            if dumpdir is not None:
+                out["egress"] = egress.listing(dumpdir,
+                                               int(self.cfg["carriers"]))
+                if read_dumps:
+                    out["egress_files"] = egress.contents(dumpdir)
+        finally:
+            if dumpdir is not None:
+                egress.remove_dir(dumpdir)
+        return out
 
 
 @contextlib.contextmanager
@@ -206,19 +241,27 @@ def keystore(cfg: dict):
         yield path
 
 
+def summarised(p: dict):
+    """A pass's summary (check.pass_summary), its receiver dropped; with
+    egress, followed by its directory's listing, both flattened."""
+    from portbench.check import pass_summary
+    mrx = p.pop("mrx")
+    s = pass_summary(mrx.carriers, mrx.native_events)
+    if "egress" in p:
+        s = np.concatenate([s.ravel(), p.pop("egress").ravel()])
+    return s
+
+
 def run_window(cell: Cell, seconds: float) -> dict:
     """Passes back to back until `seconds` have passed since the first
     began; the last pass is the first to end at or after that. Each
     pass's per-carrier results are summarised and its receiver dropped
     before the next begins."""
-    from portbench.check import pass_summary
     passes, summaries = [], []
     w0 = time.perf_counter()
     while True:
         p = cell.one_pass()
-        mrx = p.pop("mrx")
-        summaries.append(pass_summary(mrx.carriers, mrx.native_events))
-        del mrx
+        summaries.append(summarised(p))
         passes.append(p)
         if p["t1"] - w0 >= seconds:
             break
@@ -295,7 +338,8 @@ def run_cell(root: pathlib.Path, bench: dict, w: dict, cfg: dict, mix: dict,
             return 3
         numbers, compared = check.evaluate(cfg, cap, record, summaries,
                                            seed, ks_path, dev)
-    correct = check.verdict(numbers)
+    limits = check.limits(cfg)
+    correct = check.verdict(numbers, limits)
     check_s = time.perf_counter() - t_check
     passes = win["passes"]
     window_s = win["w1"] - win["w0"]
@@ -341,10 +385,10 @@ def run_cell(root: pathlib.Path, bench: dict, w: dict, cfg: dict, mix: dict,
                         "chunks": attempted, "card": power_limit()
                         if dev.type == "cuda" else "cpu"}
     result["compared"] = compared
-    result["check"] = {k: {"value": numbers[k], "limit": check.LIMITS[k]}
-                       for k in check.LIMITS}
-    for k in check.LIMITS:
-        print(f"check {k} {numbers[k]!r} limit {check.LIMITS[k]!r}",
+    result["check"] = {k: {"value": numbers[k], "limit": limits[k]}
+                       for k in limits}
+    for k in limits:
+        print(f"check {k} {numbers[k]!r} limit {limits[k]!r}",
               file=sys.stderr)
     print(json.dumps(result), file=out, flush=True)
     return 0
